@@ -1,8 +1,9 @@
 """Build, load and launch the hand-written CUDA kernels of `csrc/`.
 
-The sources are compiled at first use with `nvcc` into one shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds),
-which `ctypes` loads.  The library's file name carries a hash of the
+The sources are compiled at first use with `nvcc`, one process per source,
+all started together, and linked into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), which `ctypes`
+loads.  The library's file name carries a hash of the
 sources and flags, so an edited source is rebuilt and an unchanged one is
 reused.  It lands in `build/kernels/` at the root of the checkout.
 
@@ -31,7 +32,7 @@ CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "kernels")
 SOURCES = ("knn.cu", "fps.cu", "neighborhood.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _library = None
@@ -65,23 +66,44 @@ def library_path() -> str:
 def build() -> tuple[str, float]:
     """Compile `csrc/*.cu` unless the library for these sources exists.
 
-    Returns (library path, seconds spent compiling; 0.0 when reused).
-    Raises RuntimeError with the compiler's output when nvcc fails."""
+    Every source is compiled by its own nvcc process, all at once; the
+    objects are then linked into the library.  Returns (library path,
+    seconds spent compiling and linking; 0.0 when reused).  Raises
+    RuntimeError with the compiler's output when nvcc fails."""
     path = library_path()
     if os.path.isfile(path):
         return path, 0.0
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
+    objs = [f"{path}.{os.path.splitext(s)[0]}.{os.getpid()}.o"
+            for s in SOURCES]
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    procs = []
+    for src, obj in zip(SOURCES, objs):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC_DIR, src),
+               "-o", obj]
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for cmd, proc in procs:  # wait for every process before raising
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{out}\n{err}")
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({r.returncode}): "
+                               f"{' '.join(cmd)}\n{r.stdout}\n{r.stderr}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     seconds = time.perf_counter() - t0
-    if r.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n"
-            f"{r.stdout}\n{r.stderr}")
     os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
     return path, seconds
 
@@ -133,8 +155,13 @@ FPS = Kernel("fps", "dh3d_fps", [_P, _P, _I, _I, _I])
 WEIGHTED_SUM = Kernel("weighted_sum", "dh3d_weighted_sum",
                       [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I])
 NEIGHBOR_MAX = Kernel("neighbor_max", "dh3d_neighbor_max",
-                      [_P, _P, _P, _P, _I, _I, _I, _I, _I])
-KERNELS = (KNN, FPS, WEIGHTED_SUM, NEIGHBOR_MAX)
+                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I])
+WEIGHTED_SUM_BWD = Kernel("weighted_sum_backward", "dh3d_weighted_sum_bwd",
+                          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I])
+NEIGHBOR_MAX_BWD = Kernel("neighbor_max_backward", "dh3d_neighbor_max_bwd",
+                          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I])
+KERNELS = (KNN, FPS, WEIGHTED_SUM, NEIGHBOR_MAX, WEIGHTED_SUM_BWD,
+           NEIGHBOR_MAX_BWD)
 
 
 def reset_counts() -> None:

@@ -1,4 +1,4 @@
-from dh3d_tpu_torch.nn.convert import load_flax, load_npz
+from dh3d_tpu_torch.nn.convert import load_flax, load_npz, smart_init
 from dh3d_tpu_torch.nn.model import DH3D
 
-__all__ = ["DH3D", "load_flax", "load_npz"]
+__all__ = ["DH3D", "load_flax", "load_npz", "smart_init"]

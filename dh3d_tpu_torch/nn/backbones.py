@@ -1,4 +1,4 @@
-"""Network blocks of the DH3D forward, eval mode.
+"""Network blocks of the DH3D model.
 
 Counterpart of `dh3d_tpu/nn/backbones.py:27-485` (reference
 `core/backbones.py`).  Module and parameter names follow the Flax tree.
@@ -10,6 +10,7 @@ Morton order still changes is the order of the FPS selection
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -22,8 +23,9 @@ from dh3d_tpu_torch.nn.layers import (
     ConvPointsetBN,
     FlexConvBN,
     SEResBottleneck,
-    _param,
+    dense,
     l2_normalize,
+    normal_param,
 )
 
 
@@ -122,7 +124,8 @@ class BackboneLocalDilate(nn.Module):
 
 class DetectionBlock(nn.Module):
     """detection_block (`core/backbones.py:132-151`): 1x1 convs 128, 256,
-    1024 -> one logit -> sigmoid (or softplus) keypoint score."""
+    1024 -> one logit (bias initialised to 1/8, `backbones.py:308-312`)
+    -> sigmoid (or softplus) keypoint score."""
 
     def __init__(self, din: int, use_softplus: bool = False):
         super().__init__()
@@ -130,7 +133,7 @@ class DetectionBlock(nn.Module):
         dims = [din, 128, 256, 1024]
         for i in range(3):
             self.add_module(f"detec_conv{i}", Conv1x1(dims[i], dims[i + 1]))
-        self.detec_conv_fc = nn.Linear(1024, 1)
+        self.detec_conv_fc = dense(1024, 1, bias=1.0 / 8)
 
     def forward(self, features):
         x = features
@@ -151,7 +154,7 @@ class GlobalAttBlock(nn.Module):
         self.n_convs = len(dims) - 1
         for i in range(self.n_convs):
             self.add_module(f"detec_conv{i}", Conv1x1(dims[i], dims[i + 1]))
-        self.detec_conv_fc = nn.Linear(1024, 1)
+        self.detec_conv_fc = dense(1024, 1)
 
     def forward(self, features):
         x = features
@@ -183,15 +186,17 @@ class GlobalBeforeAssemble(nn.Module):
 
 
 class ContextGating(nn.Module):
-    """context_gating (`core/backbones.py:282-320`)."""
+    """context_gating (`core/backbones.py:282-320`); its BN at momentum
+    0.999 (`backbones.py:407`)."""
 
     def __init__(self, dim: int, add_batch_norm: bool):
         super().__init__()
-        self.gating_weights = _param(dim, dim, fan_in=dim)
+        std = 1.0 / math.sqrt(dim)
+        self.gating_weights = normal_param(dim, dim, std=std)
         if add_batch_norm:
-            self.gating_bn = BatchNorm(dim)
+            self.gating_bn = BatchNorm(dim, momentum=0.999)
         else:
-            self.gating_biases = _param(dim, fan_in=dim)
+            self.gating_biases = normal_param(dim, std=std)
 
     def forward(self, x):
         gates = x @ self.gating_weights
@@ -206,7 +211,8 @@ class NetVLAD(nn.Module):
     """global_netvald_block (`core/backbones.py:202-279`): attention-
     reweighted NetVLAD over 64 clusters, FC to 256, BN and context gating.
     All products in f32 (the JAX package runs them at
-    precision="highest")."""
+    precision="highest"); both BNs at momentum 0.999 (`backbones.py:
+    444-446,478`)."""
 
     cluster_size = 64
     output_dim = 256
@@ -214,14 +220,16 @@ class NetVLAD(nn.Module):
     def __init__(self, dim: int, add_batch_norm: bool):
         super().__init__()
         D, K = dim, self.cluster_size
-        self.cluster_weights = _param(D, K, fan_in=D)
+        std = 1.0 / math.sqrt(D)
+        self.cluster_weights = normal_param(D, K, std=std)
         if add_batch_norm:
-            self.cluster_bn = BatchNorm(K)
+            self.cluster_bn = BatchNorm(K, momentum=0.999)
         else:
-            self.cluster_biases = _param(K, fan_in=D)
-        self.cluster_weights2 = _param(1, D, K, fan_in=D)
-        self.hidden1_weights = _param(D * K, self.output_dim, fan_in=K)
-        self.hidden_bn = BatchNorm(self.output_dim)
+            self.cluster_biases = normal_param(K, std=std)
+        self.cluster_weights2 = normal_param(1, D, K, std=std)
+        self.hidden1_weights = normal_param(D * K, self.output_dim,
+                                            std=1.0 / math.sqrt(K))
+        self.hidden_bn = BatchNorm(self.output_dim, momentum=0.999)
         self.gating = ContextGating(self.output_dim, add_batch_norm)
 
     def forward(self, features, att):

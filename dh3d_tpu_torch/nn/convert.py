@@ -9,8 +9,9 @@ by `scripts/package_checkpoint.py`: "params/<module path>/<name>",
   - a Dense "kernel" [in, out] becomes nn.Linear "weight" [out, in];
   - every other array keeps its name and layout;
   - "step" is read and dropped.
-Loading is strict: an array the model does not take, a parameter no array
-fills, or a shape mismatch raises.
+`load_flax` is strict: an array the model does not take, a parameter no
+array fills, or a shape mismatch raises.  `smart_init` is the partial load
+of a warm start.
 """
 
 from __future__ import annotations
@@ -61,3 +62,16 @@ def load_npz(path: str) -> dict:
     with np.load(path) as z:
         return {k: z[k] for k in z.files}
 
+
+def smart_init(model: nn.Module, flat: Mapping[str, np.ndarray]) -> int:
+    """Partial load, the SmartInit(ignore_mismatch=True) warm start of the
+    curriculum (`trainer.py:281-306`): every array of `flat` whose name the
+    model has, with the same shape, is loaded; the others are skipped and
+    the model keeps its own values there.  Parameters and BN statistics
+    both load, as the reference's SmartInit restores every variable.
+    Returns the number of arrays loaded."""
+    own = model.state_dict()
+    take = {name: t for name, t in state_dict_from_flax(flat).items()
+            if name in own and own[name].shape == t.shape}
+    model.load_state_dict(take, strict=False)
+    return len(take)

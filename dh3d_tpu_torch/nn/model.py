@@ -1,9 +1,14 @@
-"""The DH3D eval forward: dense local descriptors, keypoint attention and
-the attention-weighted NetVLAD global descriptor.
+"""The DH3D model: dense local descriptors, keypoint attention and the
+attention-weighted NetVLAD global descriptor.
 
 Counterpart of `dh3d_tpu/nn/model.py:24-276` (reference
-`core/model.py:33-255`), eval mode only, f32 only, exact neighbour sets
-(`morton_exact`).  The `outs` dict carries the same keys as the JAX model.
+`core/model.py:33-255`), f32 only, exact neighbour sets (`morton_exact`).
+The `outs` dict carries the same keys as the JAX model.  `self.training`
+is the JAX `train` flag: BatchNorm on batch statistics, except in the
+groups a config freezes (`FREEZE_GROUPS`), which stay on their running
+statistics as `use_running_average=ura or cfg.freeze*` keeps them
+(`dh3d_tpu/nn/model.py:168,198,226`); and the outputs stay in Morton
+order, which the losses read (`dh3d_tpu/nn/model.py:126-131`).
 """
 
 from __future__ import annotations
@@ -15,6 +20,20 @@ from dh3d_tpu_torch import ops
 from dh3d_tpu_torch.config import dotdict
 from dh3d_tpu_torch.nn import backbones
 from dh3d_tpu_torch.nn.layers import l2_normalize
+
+
+# frozen module groups per config flag (`dh3d_tpu/train/trainer.py:72-76`)
+FREEZE_GROUPS = {
+    "freezebackbone": ("local_backbone",),
+    "freezedetection": ("detection_block",),
+    "freezeglobal": ("global_backbone", "globalatt", "global_assemble"),
+}
+
+
+def frozen_groups(cfg) -> set:
+    """Names of the top-level modules `cfg` freezes."""
+    return {name for flag, names in FREEZE_GROUPS.items() if cfg.get(flag)
+            for name in names}
 
 
 def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -64,6 +83,16 @@ class DH3D(nn.Module):
             self.global_assemble = backbones.NetVLAD(
                 gl_dims[-1], add_batch_norm=bool(cfg.add_batch_norm))
 
+    def train(self, mode: bool = True):
+        """Train mode everywhere but in the frozen groups (BN on running
+        statistics there)."""
+        super().train(mode)
+        if mode:
+            for name in frozen_groups(self.cfg):
+                if hasattr(self, name):
+                    getattr(self, name).train(False)
+        return self
+
     def forward(self, points, knn_inds=None, sample_inds=None):
         """points [B, N, 3] f32; knn_inds optional [B, N, knn_num] int64
         neighbour ids in the input order; sample_inds optional
@@ -72,7 +101,8 @@ class DH3D(nn.Module):
         inv_perm = None
         if cfg.morton_order and not cfg.morton_presorted:
             # Z-order sort; every per-point computation runs in sorted
-            # space and dense outputs are un-permuted on exit
+            # space and dense outputs are un-permuted on exit in eval mode
+            # (training keeps the sorted order: the losses read it)
             perm, inv_perm = ops.morton_perm(points)
             points = _take_rows(points, perm)
             if sample_inds is not None:
@@ -88,7 +118,9 @@ class DH3D(nn.Module):
             knn_inds, _ = ops.knn_bruteforce(points, cfg.knn_num)
 
         def unpermute(x):
-            return x if inv_perm is None else _take_rows(x, inv_perm)
+            if inv_perm is None or self.training:
+                return x
+            return _take_rows(x, inv_perm)
 
         outs = {"xyz": unpermute(points), "knn_indices": knn_inds}
 

@@ -1,8 +1,9 @@
 """Exact k nearest neighbours: kernel A (`csrc/knn.cu`) and its plain version.
 
 Counterpart of `dh3d_tpu/ops/knn.py` and of the Pallas kernels
-`knn_pallas._knn_kernel_packed` (self-kNN) and `knn_pallas._knn_kernel_banded`
-(3-NN over the whole key table).  Semantics of the reference CPU kernel
+`knn_pallas._knn_kernel_packed` (self-kNN), `knn_pallas._knn_kernel_banded`
+(3-NN over the whole key table) and `knn_pallas._knn_kernel` (exact cross
+kNN: the detection loss's k=16 queries, `knn_bruteforce_pairwise`).  Semantics of the reference CPU kernel
 (`user_ops/kernels/knn_bruteforce_kernel.cc:25-72`): neighbours ascending by
 distance, the lowest index first among equal distances, so a self query
 finds itself at slot 0 (distance exactly 0).
@@ -73,4 +74,14 @@ def knn_bruteforce(positions: torch.Tensor, k: int):
     (`dh3d_tpu/ops/knn.py:61`): positions [B, N, 3] -> (idx [B, N, k]
     int64, dist [B, N, k] Euclidean), ascending, self at slot 0."""
     idx, d2 = knn(positions, positions, k)
+    return idx, torch.sqrt(d2)
+
+
+def knn_bruteforce_pairwise(query: torch.Tensor, reference: torch.Tensor,
+                            k: int):
+    """k nearest points of `reference` for each point of `query`, across
+    clouds (`dh3d_tpu/ops/knn.py:134`): query [B, M, 3], reference
+    [B, N, 3] -> (idx [B, M, k] int64, dist [B, M, k] Euclidean),
+    ascending, the lowest index first among equal distances."""
+    idx, d2 = knn(query, reference, k)
     return idx, torch.sqrt(d2)

@@ -113,7 +113,7 @@ def test_forward_with_given_knn_and_keypoints_matches_jax():
     cfg = entry_config()
     cfg.sampled_kpnum = 16
     cfg.global_subsample = 32
-    model = DH3D(cfg)
+    model = DH3D(cfg).eval()  # a module starts in train mode
     load_flax(model, flatten_variables(variables))
     with torch.no_grad():
         to = model(torch.from_numpy(pts), knn_inds=knn,
@@ -191,6 +191,8 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import dh3d_tpu_torch, dh3d_tpu_torch.kernels, dh3d_tpu_torch.ops\n"
         "import dh3d_tpu_torch.nn, dh3d_tpu_torch.eval, dh3d_tpu_torch.entry\n"
+        "import dh3d_tpu_torch.losses, dh3d_tpu_torch.train\n"
+        "import dh3d_tpu_torch.train.__main__\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'flax', 'dh3d_tpu'))\n"
         "assert not bad, bad\n")
