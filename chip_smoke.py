@@ -24,7 +24,7 @@ result line:
      width ([20, 8192], 512 keypoints; the sizes of
      `models/demo_stage2.config.json`), weights from `models/demo_stage2.npz`
      through the port's warm-start loader, seeded synthetic batches.  Over
-     one step every kernel (A-F) is launched; loss and metrics are finite;
+     one step every kernel A-F is launched; loss and metrics are finite;
      every trainable gradient is finite and nonzero (but the biases that
      feed a BatchNorm, whose exact gradient is 0); the BN running
      statistics move.  Step time (CUDA events), clouds/s, peak memory, the
@@ -32,6 +32,23 @@ result line:
   7. one train step at [2, 8192] on the card and on the CPU, same weights
      and batch: Morton order, kNN, FPS, 3-NN and the detection loss's kNN
      equal; losses and gradients within the tolerances below.
+  8. local descriptor extraction at the reference's eval sizes through the
+     port's CLI code (`dh3d_tpu_torch.evaluate.localdesc_extract.main`),
+     `models/demo_stage2`, on 8 seeded synthetic lidar-like scans of
+     30,000 points written as .bin files: keypoint NMS at N=16384 (k=50,
+     radius 0.5, ratio 0.01, 512 keypoints); one dense `--save_all` cloud;
+     one `oxford_dso` cloud at N=9000.  Kernels A, B, C, D and G must each
+     be launched by the NMS extraction; every keypoint file holds <= 512
+     finite rows of 132 floats with unit-norm descriptors.  Clouds/s end
+     to end, split into load + normalise, forward, NMS and write; peak
+     memory.  Then `globaldesc_extract.main` with `models/demo_stage3` on
+     the same scans at [4, 8192], with recall.
+  9. one N=16384 scan through the extraction forward on the card and on
+     the CPU: Morton order, kNN, FPS and 3-NN equal, descriptors and
+     attention within the phase-5 tolerances; the 50-NN (ids and d2) and
+     the NMS keypoints of the card's xyz and attention equal on both; the keypoints that
+     differ between card-forward + card-NMS and CPU-forward + CPU-NMS are
+     counted (reported, not checked).
 The last three lines: the card, the kernels JSON, the ok JSON.
 """
 
@@ -39,10 +56,16 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import pickle
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+
+import numpy as np
 
 # Phase 5 tolerances, card vs CPU.  Every index (Morton order, kNN, FPS,
 # 3-NN) is computed from the coordinates alone with the same rounded
@@ -70,6 +93,7 @@ REPLACES = {
     "knn": ("dh3d_tpu/ops/pallas/knn_pallas.py:34",
             ["dh3d_tpu/ops/pallas/knn_pallas.py:149",
              "dh3d_tpu/ops/pallas/knn_pallas.py:112"]),
+    "knn_topk": ("dh3d_tpu/ops/pallas/knn_pallas.py:259", []),
     "fps": ("dh3d_tpu/ops/pallas/fps_pallas.py:31", []),
     "weighted_sum": (f"{BANDED}:77", [f"{BANDED}:432", f"{BANDED}:1294"]),
     "neighbor_max": (f"{BANDED}:896", []),
@@ -80,6 +104,7 @@ REPLACES = {
 }
 SOURCES = {
     "knn": "dh3d_tpu_torch/csrc/knn.cu",
+    "knn_topk": "dh3d_tpu_torch/csrc/knn_topk.cu",
     "fps": "dh3d_tpu_torch/csrc/fps.cu",
     "weighted_sum": "dh3d_tpu_torch/csrc/neighborhood.cu",
     "neighbor_max": "dh3d_tpu_torch/csrc/neighborhood.cu",
@@ -87,8 +112,13 @@ SOURCES = {
     "neighbor_max_backward": "dh3d_tpu_torch/csrc/neighborhood.cu",
 }
 CSR_MS = {}  # phase 3's timings of the CSR inverse, for the report
-# the forward (phase 4) runs A-D; the train step (phase 6) all six
+# the forward (phase 4) runs A-D; the train step (phase 6) A-F; the local
+# extraction with NMS (phase 8) A-D and G
 FORWARD_KERNELS = ("knn", "fps", "weighted_sum", "neighbor_max")
+EXTRACT_KERNELS = FORWARD_KERNELS + ("knn_topk",)
+TRAIN_KERNELS = FORWARD_KERNELS + ("weighted_sum_backward",
+                                   "neighbor_max_backward")
+NMS = {"k": 50, "radius": 0.5, "ratio": 0.01, "max_kp": 512}  # CLI defaults
 
 
 def log(*args):
@@ -255,7 +285,53 @@ def kernel_phase(torch, T, device):
              lambda: T.neighbor_max_backward(dval, idx, slot, keys),
              lambda: T.neighbor_max_backward_plain(dval, idx, slot, keys),
              wsum_close)
+
+    # G: keypoint NMS's 50-NN of a normalised lidar eval cloud (loader
+    # order), the same across clouds, and the ends of G's k range; B on the
+    # eval clouds beyond one block's shared memory (the cluster tier)
+    def clouds(seeds, numpts):
+        return torch.from_numpy(np.stack(
+            [eval_cloud(s, numpts) for s in seeds])).to(device)
+
+    lidar = clouds([0], 16384)
+    case("knn_topk", "self k=50 [1,16384]", lambda: T.knn(lidar, lidar, 50),
+         lambda: T.knn_plain(lidar, lidar, 50), same_knn)
+    keys4 = clouds([1, 2, 3, 4], 16384)
+    q4 = (keys4[:, ::8] + 0.05).contiguous()
+    case("knn_topk", "cross k=50 [4,2048]x[4,16384]",
+         lambda: T.knn(q4, keys4, 50), lambda: T.knn_plain(q4, keys4, 50),
+         same_knn)
+    small = clouds([5, 6], 3000)
+    for k in (33, 128):
+        case("knn_topk", f"self k={k} [2,3000]",
+             lambda: T.knn(small, small, k),
+             lambda: T.knn_plain(small, small, k), same_knn)
+    dso = clouds([7], 9000)
+    big = torch.from_numpy(lidar_like_scan(8, n_points=40000)[None]).to(device)
+    for label, pts_, m in (("[1,16384]->2048", lidar, 2048),
+                           ("[1,9000]->1125", dso, 1125),
+                           ("[1,40000]->5000", big, 5000)):
+        case("fps", label, lambda: T.farthest_point_sample(pts_, m),
+             lambda: T.fps_plain(pts_, m), same)
     return cases
+
+
+def eval_cloud(seed, numpts):
+    """A synthetic lidar-like scan through the local eval loader's
+    normalisation: [numpts, 3] float32."""
+    from dh3d_tpu_torch.data.io import get_fixednum_pcd
+
+    cloud, ori_num = get_fixednum_pcd(
+        lidar_like_scan(seed), numpts, randsample=False,
+        need_downsample=True, rng=np.random.RandomState(seed))
+    assert ori_num == numpts, (seed, ori_num)
+    return cloud
+
+
+def lidar_like_scan(seed, n_points=30000):
+    from dh3d_tpu_torch.data.synthetic import lidar_like_scan as scan
+
+    return scan(seed, n_points=n_points)
 
 
 def check_outputs(torch, outs, points, B, N):
@@ -374,8 +450,9 @@ def train_phase(torch, kernels, device):
     torch.cuda.synchronize()
     launches = kernels.counts()
     log(f"  launches in one train step: {launches}")
-    for name, n in launches.items():
-        assert n > 0, f"kernel {name} was not launched by the train step"
+    for name in TRAIN_KERNELS:
+        assert launches[name] > 0, \
+            f"kernel {name} was not launched by the train step"
     metrics = {k: float(v) for k, v in metrics.items()}
     assert all(map(math.isfinite, metrics.values())), metrics
     n_grads = check_gradients(torch, state, cfg)
@@ -496,6 +573,213 @@ def card_vs_cpu_train(torch, device):
         f"{cpu['s']:.1f} s, card step {gpu['s']:.2f} s")
 
 
+def check_rows(path, max_rows):
+    """A descriptor file of 132-float rows: at least one and at most
+    `max_rows` rows, finite, unit-norm descriptors.  Returns the rows."""
+    size = os.path.getsize(path)
+    assert size > 0 and size % (132 * 4) == 0, (path, size)
+    rows = np.fromfile(path, np.float32).reshape(-1, 132)
+    assert len(rows) <= max_rows, (path, len(rows))
+    assert np.isfinite(rows).all(), path
+    norm = np.linalg.norm(rows[:, 3:131], axis=1)
+    assert np.abs(norm - 1).max() < 1e-4, (path, np.abs(norm - 1).max())
+    return rows
+
+
+def local_cli(pcd, out, *flags):
+    """The port's local extraction CLI, in this process (its kernel counts
+    are this process's), with demo_stage2 on the card."""
+    from dh3d_tpu_torch.evaluate import localdesc_extract
+
+    return localdesc_extract.main([
+        "--ModelPath", "models/demo_stage2", "--pcdpath", pcd, "--dim", "3",
+        "--device", "cuda", "--batch_size", "1", "--save_dir", out,
+        "--nms_rad", str(NMS["radius"]), "--nms_min_ratio", str(NMS["ratio"]),
+        "--nms_max_kp", str(NMS["max_kp"]), *flags])
+
+
+def extraction_phase(torch, kernels, work):
+    """Phase 8.  Returns (launches over the NMS extraction, report)."""
+    from dh3d_tpu_torch.data.io import write_to_bin
+    from dh3d_tpu_torch.evaluate import globaldesc_extract
+
+    scans, one = os.path.join(work, "scans"), os.path.join(work, "one")
+    os.makedirs(scans)
+    os.makedirs(one)
+    names = [f"scan{s}" for s in range(8)]
+    for s, name in enumerate(names):
+        write_to_bin(lidar_like_scan(s), os.path.join(scans, name + ".bin"))
+    shutil.copy(os.path.join(scans, "scan0.bin"), one)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    summary = local_cli(scans, os.path.join(work, "nms"), "--perform_nms")
+    torch.cuda.synchronize()
+    launches = kernels.counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  launches over the NMS extraction of 8 clouds: {launches}")
+    for name in EXTRACT_KERNELS:
+        assert launches[name] > 0, \
+            f"kernel {name} was not launched by the NMS extraction"
+    assert summary["clouds"] == 8, summary
+    kps = [len(check_rows(os.path.join(work, "nms", f"{n}_nms_res.bin"),
+                          NMS["max_kp"])) for n in names]
+    n, secs, parts = summary["clouds"], summary["seconds"], summary["timings"]
+    report = {"shape": [1, 16384, 3], "clouds": n, "seconds": secs,
+              "clouds_per_s": n / secs,
+              "ms_per_cloud": {k: 1e3 * v / n for k, v in parts.items()},
+              "keypoints": kps, "peak_mem_gb": peak_gb, "launches": launches}
+    log(f"  NMS extraction, 8 clouds at N=16384: {n / secs:.2f} clouds/s "
+        f"(host clock, load to write); ms a cloud "
+        f"{ {k: round(v, 2) for k, v in report['ms_per_cloud'].items()} }; "
+        f"keypoints {kps}; peak {peak_gb:.2f} GB")
+
+    dense = local_cli(one, os.path.join(work, "dense"), "--save_all")
+    rows = check_rows(os.path.join(work, "dense", "scan0_res.bin"), 16384)
+    assert len(rows) == 16384 and dense["clouds"] == 1
+    dso = local_cli(one, os.path.join(work, "dso"), "--perform_nms",
+                    "--dataset", "oxford_dso")
+    dso_kp = len(check_rows(os.path.join(work, "dso", "scan0_nms_res.bin"),
+                            NMS["max_kp"]))
+    report["dense_s"] = dense["seconds"]
+    report["dso_9000"] = {"seconds": dso["seconds"], "keypoints": dso_kp,
+                          "ms": {k: 1e3 * v for k, v in
+                                 dso["timings"].items()}}
+    log(f"  dense --save_all cloud [16384, 132] in {dense['seconds']:.3f} s;"
+        f" oxford_dso N=9000 with NMS in {dso['seconds']:.3f} s, "
+        f"{dso_kp} keypoints")
+
+    gt = os.path.join(work, "gt.pickle")
+    with open(gt, "wb") as f:  # two sequences of 4, twins 3 m apart
+        pickle.dump({f"seq{q}": [{"query": names[4 * q + i],
+                                  "northing": 10.0 * i + 3.0 * q,
+                                  "easting": 0.0} for i in range(4)]
+                     for q in range(2)}, f)
+    t0 = time.perf_counter()
+    gsum = globaldesc_extract.main([
+        "--ModelPath", "models/demo_stage3", "--pcdpath", scans,
+        "--ref_gt_file", gt, "--query_gt_file", gt, "--batch_size", "4",
+        "--num_points", "8192", "--eval_recall", "--device", "cuda",
+        "--save_dir", os.path.join(work, "global")])
+    glob_s = time.perf_counter() - t0
+    assert gsum["clouds"] == 8, gsum
+    for name in names:
+        d = np.fromfile(os.path.join(work, "global", name + ".bin"),
+                        np.float32)
+        assert d.shape == (256,) and np.isfinite(d).all(), name
+        assert abs(np.linalg.norm(d) - 1) < 1e-4, name
+    assert all(map(math.isfinite, gsum["recall@N"]))
+    report["global"] = {"shape": [4, 8192, 3], "clouds": 8,
+                        "seconds": glob_s, "recall@1": gsum["recall@N"][0],
+                        "one_percent": gsum["one_percent"]}
+    log(f"  global descriptors, 8 clouds at [4, 8192]: {glob_s:.3f} s "
+        f"(host clock, with model load and recall); recall@1 "
+        f"{gsum['recall@N'][0]:.3f}")
+    return launches, report
+
+
+def card_vs_cpu_extraction(torch, T, device):
+    """Phase 9: one N=16384 scan through the forward and NMS on both."""
+    from dh3d_tpu_torch.eval import device_nms, local_result_rows, make_forward
+    from dh3d_tpu_torch.train import resolve_model
+
+    cloud = eval_cloud(0, 16384)[None]
+    runs = {}
+    for dev in ("cpu", device):
+        cfg, model = resolve_model("models/demo_stage2")
+        cfg.num_points, cfg.sampled_kpnum, cfg.input_R = 16384, -1, False
+        model = model.to(dev)
+        seen = []
+        hook = model.local_backbone.register_forward_hook(
+            lambda mod, inp, out: seen.append((inp[0], out[2])))
+        t0 = time.perf_counter()
+        outs = make_forward(cfg, model)(cloud)
+        rows = local_result_rows(outs, True)[0]
+        seconds = time.perf_counter() - t0
+        hook.remove()
+        sorted_xyz, cache = seen[0]
+        runs[str(dev)] = {
+            "idx": {"morton-sorted xyz": sorted_xyz.cpu(),
+                    "knn k=8 [16384]": outs["knn_indices"].cpu(),
+                    "fps 16384->2048": cache["kp_idx"].cpu(),
+                    "knn k=8 [2048]": cache["knn_indices"].cpu(),
+                    "3-nn": cache["interp"][1].cpu()},
+            "out": {k: outs[k].cpu() for k in ("local_desc", "attention",
+                                               "xyz_feat_att", "feat")},
+            "rows": rows, "s": seconds}
+    cpu, gpu = runs["cpu"], runs[str(device)]
+    for key, ref in cpu["idx"].items():
+        assert torch.equal(gpu["idx"][key], ref), f"{key} differs"
+    errs = {}
+    for key in ("local_desc", "attention", "xyz_feat_att"):
+        errs[key] = (gpu["out"][key] - cpu["out"][key]).abs().max().item()
+        assert errs[key] <= CARD_VS_CPU_ATOL, (key, errs[key])
+    feat_err = (gpu["out"]["feat"] - cpu["out"]["feat"]).abs().max().item()
+    feat_scale = cpu["out"]["feat"].abs().max().item()
+    assert feat_err <= CARD_VS_CPU_FEAT_REL * feat_scale, feat_err
+    log(f"  forward: indices equal ({', '.join(cpu['idx'])}); max abs err "
+        f"{errs}; feat {feat_err:.3g} of {feat_scale:.3g}; CPU forward "
+        f"{cpu['s']:.1f} s, card {gpu['s']:.3f} s")
+
+    # NMS from the same inputs: the card's xyz and (inverted) attention
+    xyz = np.ascontiguousarray(gpu["rows"][:, :3])
+    att = 1 - gpu["rows"][:, -1]
+    assert np.array_equal(xyz, cpu["rows"][:, :3])  # the input coordinates
+    nn = {}
+    for dev in ("cpu", device):
+        pts = torch.from_numpy(xyz)[None].to(dev)
+        idx, d2 = T.knn(pts, pts, NMS["k"])
+        nn[str(dev)] = (idx.cpu(), d2.cpu(), torch.sqrt(d2).cpu())
+    assert torch.equal(nn["cpu"][0], nn[str(device)][0]), "50-NN ids differ"
+    assert torch.equal(nn["cpu"][1], nn[str(device)][1]), "50-NN d2 differ"
+    # the NMS compares Euclidean distances: torch.sqrt of equal d2 on the
+    # card and on the CPU (counted, not checked)
+    sqrt_differ = int((nn["cpu"][2] != nn[str(device)][2]).sum())
+    args = (NMS["radius"], NMS["ratio"], NMS["max_kp"])
+    t0 = time.perf_counter()
+    n_cpu, kp_cpu = device_nms(xyz, att, *args, device="cpu")
+    cpu_nms_s = time.perf_counter() - t0
+    n_gpu, kp_gpu = device_nms(xyz, att, *args, device=device)
+    assert n_cpu == n_gpu and np.array_equal(kp_cpu, kp_gpu), \
+        "NMS of the same inputs differs between the card and the CPU"
+
+    # each whole pipeline: card forward + card NMS vs CPU forward + CPU NMS
+    att_cpu = 1 - cpu["rows"][:, -1]
+    n_ref, kp_ref = device_nms(xyz, att_cpu, *args, device="cpu")
+    a, b = list(kp_gpu[:n_gpu]), list(kp_ref[:n_ref])
+    differ = sorted(set(a) ^ set(b))
+    reordered = (int(sum(x != y for x, y in zip(a, b))) if not differ
+                 else None)
+    gap = float(np.abs(att - att_cpu).max())
+    # the closest call each differing keypoint's decision hung on: its
+    # attention against that of any neighbour within the radius, and
+    # against the last keypoint kept
+    ids, dist = nn["cpu"][0][0].numpy(), nn["cpu"][2][0].numpy()
+    margins = []
+    for p in differ:
+        q = ids[p][(dist[p] <= NMS["radius"]) & (ids[p] != p)]
+        cands = np.abs(att_cpu[p] - att_cpu[q]).tolist()
+        if b:
+            cands.append(abs(float(att_cpu[p] - att_cpu[b[-1]])))
+        margins.append(min(cands) if cands else float("inf"))
+    report = {"keypoints_card": n_gpu, "keypoints_cpu": n_ref,
+              "differing": len(differ), "reordered": reordered,
+              "max_att_gap": gap, "sqrt_d2_differ": sqrt_differ,
+              "largest_margin_of_a_difference": max(margins, default=None),
+              "forward_max_abs_err": errs, "cpu_forward_s": cpu["s"],
+              "cpu_nms_s": cpu_nms_s}
+    log(f"  NMS of the card's xyz and attention: 50-NN ids and d2 and "
+        f"{n_gpu} keypoints equal on card and CPU (CPU NMS "
+        f"{cpu_nms_s:.1f} s); sqrt(d2) differs in {sqrt_differ} of "
+        f"{nn['cpu'][2].numel()}")
+    log(f"  card forward + NMS vs CPU forward + NMS: {len(differ)} keypoints"
+        f" differ ({n_gpu} vs {n_ref}), largest attention gap card-CPU "
+        f"{gap:.3g}, largest margin among the differences "
+        f"{report['largest_margin_of_a_difference']}")
+    return report
+
+
 def main():
     import torch
 
@@ -578,6 +862,16 @@ def main():
     log("phase 7: card vs CPU train step [2, 8192]")
     card_vs_cpu_train(torch, device)
 
+    log("phase 8: local extraction with NMS [1, 16384] and global [4, 8192]")
+    with tempfile.TemporaryDirectory() as work:
+        extract_launches, extract_report = extraction_phase(torch, kernels,
+                                                            work)
+
+    log("phase 9: card vs CPU extraction [1, 16384]")
+    extract_report["card_vs_cpu"] = card_vs_cpu_extraction(torch, T, device)
+
+    # `launches`: the count from this slice's path (the NMS extraction)
+    # for the kernels it runs, from the train step for E and F
     kernel_rows = []
     for name, rows in cases.items():
         main_case = rows[0]
@@ -585,14 +879,17 @@ def main():
         kernel_rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": replaces, "also_replaces": also,
-            "launches": train_launches[name],
+            "launches": (extract_launches if name in EXTRACT_KERNELS
+                         else train_launches)[name],
             "launches_by_path": {"forward": fwd_launches[name],
-                                 "train_step": train_launches[name]},
+                                 "train_step": train_launches[name],
+                                 "extract_local": extract_launches[name]},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "shape": main_case["shape"], "cases": rows})
     train_report["csr_inverse_ms"] = CSR_MS
     log(json.dumps({"train_step": train_report}))
+    log(json.dumps({"extract_local": extract_report}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": kernel_rows}))

@@ -1,12 +1,27 @@
-"""The extraction forward (counterpart of `dh3d_tpu/eval/extract.py:40-100`).
+"""Descriptor extraction (counterpart of `dh3d_tpu/eval/extract.py`).
 
-Writing descriptor files and keypoint NMS are not ported yet.
+`make_forward` is the eval forward.  `extract_local` and `extract_global`
+drive it over eval clouds as the reference CLIs do
+(`evaluate/local_eval/localdesc_extract.py`,
+`evaluate/global_eval/globaldesc_extract.py`): batch to a fixed size
+(padding the last batch with zero clouds), run the forward, crop each cloud
+to its `ori_num` real points, and write dense rows, NMS keypoint rows
+([xyz | 128-D descriptor | attention]) or one 256-f32 global descriptor per
+cloud.  The reference quirk is kept: eval attention is inverted,
+att = 1 - res[:, -1] (`localdesc_extract.py:94`).
 """
 
 from __future__ import annotations
 
+import os
+import time
+from typing import Iterable
+
+import numpy as np
 import torch
 
+from dh3d_tpu_torch.data.io import write_to_bin
+from dh3d_tpu_torch.eval.nms import nms_keypoint_indices
 from dh3d_tpu_torch.nn.model import DH3D
 
 
@@ -29,3 +44,136 @@ def make_forward(cfg, model: DH3D):
             return model(points.contiguous(), knn_inds=knn_inds)
 
     return fwd
+
+
+def local_result_rows(outs, with_attention):
+    """[B, N, 3+128(+1)] float32 rows on the host: xyz | l2-normed
+    descriptor (| attention), the 'xyz_feat(_att)' outputs
+    (`core/model.py:181,188`)."""
+    key = "xyz_feat_att" if with_attention else "xyz_feat"
+    return outs[key].cpu().numpy()
+
+
+def _pad(batch, batch_size, dtype):
+    pad = batch_size - batch.shape[0]
+    if pad <= 0:
+        return batch
+    return np.concatenate([batch, np.zeros((pad,) + batch.shape[1:], dtype)])
+
+
+def _timed(items, timings):
+    """Yield from `items`, adding the seconds spent producing each (host
+    load and normalisation) to timings['load']."""
+    it = iter(items)
+    while True:
+        t0 = time.perf_counter()
+        try:
+            item = next(it)
+        except StopIteration:
+            return
+        timings["load"] = timings.get("load", 0.0) + time.perf_counter() - t0
+        yield item
+
+
+def extract_local(cfg, model: DH3D, dataset: Iterable, save_dir,
+                  batch_size=1, perform_nms=False, save_all=False,
+                  nms_rad=0.5, nms_min_ratio=0.01, nms_max_kp=512,
+                  nms_backend="device", nms_parity_check=False,
+                  timings=None):
+    """Per-cloud local descriptors (`localdesc_extract.py:106-138`).
+
+    dataset yields [cloud [N, 3], name, ori_num(, knn_ind [N, k])].
+    Writes `<name>_res.bin` (dense) or `<name>_nms_res.bin` (keypoints,
+    NMS on the model's device).  `timings`, when given, accumulates host
+    seconds under 'load' (dataset), 'forward' (forward and the copy of the
+    rows to the host), 'nms' and 'write'.  Returns the number of clouds."""
+    os.makedirs(save_dir, exist_ok=True)
+    fwd = make_forward(cfg, model)
+    device = next(model.parameters()).device
+    with_att = bool(cfg.detection)
+    timings = {} if timings is None else timings
+
+    def add(key, t0):
+        timings[key] = timings.get(key, 0.0) + time.perf_counter() - t0
+
+    buf, names, orinums, knns = [], [], [], []
+
+    def write(rows, path):
+        t0 = time.perf_counter()
+        write_to_bin(np.float32(rows), path)
+        add("write", t0)
+
+    def flush():
+        if not buf:
+            return 0
+        t0 = time.perf_counter()
+        batch = _pad(np.stack(buf), batch_size, np.float32)
+        knn = None
+        if knns[0] is not None:
+            knn = _pad(np.stack(knns), batch_size, np.int32)
+        rows = local_result_rows(fwd(batch, knn), with_att)
+        add("forward", t0)
+        for b, (name, num) in enumerate(zip(names, orinums)):
+            res = rows[b][:num]
+            stem = os.path.join(save_dir, os.path.splitext(name)[0])
+            if save_all or not with_att or not perform_nms:
+                write(res, f"{stem}_res.bin")
+                continue
+            t0 = time.perf_counter()
+            xyz = res[:, 0:3]
+            attention = 1 - res[:, -1]  # reference inversion
+            max_idx = nms_keypoint_indices(
+                xyz, attention, nms_radius=nms_rad,
+                min_response_ratio=nms_min_ratio, max_keypoints=nms_max_kp,
+                backend=nms_backend, parity_check=nms_parity_check,
+                device=device)
+            add("nms", t0)
+            write(res[max_idx, :], f"{stem}_nms_res.bin")
+        n = len(names)
+        buf.clear(); names.clear(); orinums.clear(); knns.clear()
+        return n
+
+    total = 0
+    for item in _timed(dataset, timings):
+        buf.append(np.asarray(item[0], np.float32))
+        names.append(item[1])
+        orinums.append(int(item[2]))
+        knns.append(item[3] if len(item) > 3 else None)
+        if len(buf) == batch_size:
+            total += flush()
+    total += flush()
+    return total
+
+
+def extract_global(cfg, model: DH3D, dataset: Iterable, save_dir,
+                   batch_size=4):
+    """Per-cloud 256-f32 global descriptors
+    (`globaldesc_extract.py:81-100`).  dataset yields [cloud, name]; each
+    descriptor goes to `<save_dir>/<name without .bin>.bin`.  Returns the
+    number of clouds."""
+    os.makedirs(save_dir, exist_ok=True)
+    fwd = make_forward(cfg, model)
+
+    buf, names = [], []
+
+    def flush():
+        if not buf:
+            return 0
+        batch = _pad(np.stack(buf), batch_size, np.float32)
+        gd = fwd(batch)["global_desc"].cpu().numpy()
+        for b, name in enumerate(names):
+            out = os.path.join(save_dir, os.path.splitext(name)[0] + ".bin")
+            os.makedirs(os.path.dirname(out), exist_ok=True)
+            write_to_bin(np.float32(gd[b]), out)
+        n = len(names)
+        buf.clear(); names.clear()
+        return n
+
+    total = 0
+    for cloud, name in dataset:
+        buf.append(np.asarray(cloud, np.float32))
+        names.append(name)
+        if len(buf) == batch_size:
+            total += flush()
+    total += flush()
+    return total

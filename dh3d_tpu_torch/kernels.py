@@ -30,7 +30,7 @@ import torch
 PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "kernels")
-SOURCES = ("knn.cu", "fps.cu", "neighborhood.cu")
+SOURCES = ("knn.cu", "knn_topk.cu", "fps.cu", "neighborhood.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -117,8 +117,8 @@ def library() -> ctypes.CDLL:
             lib = ctypes.CDLL(path)
             lib.dh3d_error_string.argtypes = [_I]
             lib.dh3d_error_string.restype = ctypes.c_char_p
-            lib.dh3d_fps_smem_limit.argtypes = [_I]
-            lib.dh3d_fps_smem_limit.restype = _I
+            lib.dh3d_fps_max_points.argtypes = [_I, _I]
+            lib.dh3d_fps_max_points.restype = _I
             for k in KERNELS:
                 fn = getattr(lib, k.symbol)
                 fn.argtypes = k.argtypes
@@ -151,6 +151,8 @@ class Kernel:
 
 
 KNN = Kernel("knn", "dh3d_knn", [_P, _P, _P, _P, _I, _I, _I, _I])
+KNN_TOPK = Kernel("knn_topk", "dh3d_knn_topk",
+                  [_P, _P, _P, _P, _I, _I, _I, _I])
 FPS = Kernel("fps", "dh3d_fps", [_P, _P, _I, _I, _I])
 WEIGHTED_SUM = Kernel("weighted_sum", "dh3d_weighted_sum",
                       [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I])
@@ -160,8 +162,8 @@ WEIGHTED_SUM_BWD = Kernel("weighted_sum_backward", "dh3d_weighted_sum_bwd",
                           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I])
 NEIGHBOR_MAX_BWD = Kernel("neighbor_max_backward", "dh3d_neighbor_max_bwd",
                           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I])
-KERNELS = (KNN, FPS, WEIGHTED_SUM, NEIGHBOR_MAX, WEIGHTED_SUM_BWD,
-           NEIGHBOR_MAX_BWD)
+KERNELS = (KNN, KNN_TOPK, FPS, WEIGHTED_SUM, NEIGHBOR_MAX,
+           WEIGHTED_SUM_BWD, NEIGHBOR_MAX_BWD)
 
 
 def reset_counts() -> None:
@@ -173,9 +175,11 @@ def counts() -> dict:
     return {k.name: k.launches for k in KERNELS}
 
 
-def fps_smem_limit(device: torch.device) -> int:
-    """Bytes of dynamic shared memory the FPS kernel may use on `device`."""
-    return int(library().dh3d_fps_smem_limit(device.index or 0))
+def fps_max_points(device: torch.device, cluster: int = 8) -> int:
+    """The largest cloud the FPS kernel samples on `device` with `cluster`
+    blocks a cloud: 1 is the single-block kernel, 2..8 the cluster kernel
+    (8, the default, is the most `farthest_point_sample` takes)."""
+    return int(library().dh3d_fps_max_points(device.index or 0, cluster))
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

@@ -1,14 +1,17 @@
-"""Exact k nearest neighbours: kernel A (`csrc/knn.cu`) and its plain version.
+"""Exact k nearest neighbours: kernels A (`csrc/knn.cu`, k <= 32) and G
+(`csrc/knn_topk.cu`, 32 < k <= 128) and their plain version.
 
 Counterpart of `dh3d_tpu/ops/knn.py` and of the Pallas kernels
 `knn_pallas._knn_kernel_packed` (self-kNN), `knn_pallas._knn_kernel_banded`
-(3-NN over the whole key table) and `knn_pallas._knn_kernel` (exact cross
-kNN: the detection loss's k=16 queries, `knn_bruteforce_pairwise`).  Semantics of the reference CPU kernel
+(3-NN over the whole key table), `knn_pallas._knn_kernel` (exact cross
+kNN: the detection loss's k=16 queries, `knn_bruteforce_pairwise`) and
+`knn_pallas._knn_kernel_slab` (every k >= 32: keypoint NMS's k=50).
+Semantics of the reference CPU kernel
 (`user_ops/kernels/knn_bruteforce_kernel.cc:25-72`): neighbours ascending by
 distance, the lowest index first among equal distances, so a self query
 finds itself at slot 0 (distance exactly 0).
 
-Both versions build d2 = (dx*dx + dy*dy) + dz*dz with each operation
+All versions build d2 = (dx*dx + dy*dy) + dz*dz with each operation
 rounded on its own, so they agree bit for bit on d2 and therefore on the
 indices.  The JAX CPU path builds d2 with the matmul identity instead and
 pins self at -1 (`dh3d_tpu/ops/knn.py:38-52`): indices agree with it except
@@ -21,7 +24,8 @@ import torch
 
 from dh3d_tpu_torch import kernels
 
-MAX_K = 32
+MAX_K = 32  # kernel A's largest k; kernel G takes the k above it
+TOPK_MAX_K = 128  # kernel G's largest k (`dh3d_knn_topk`)
 _CHUNK_ELEMS = 1 << 23  # bounds the plain version's [B, chunk, Nk] d2 block
 
 
@@ -51,21 +55,26 @@ def knn(query: torch.Tensor, keys: torch.Tensor, k: int):
     """k nearest keys of every query, exact.
 
     query [B, Nq, 3] and keys [B, Nk, 3] float32, contiguous, 1 <= k <=
-    min(32, Nk).  Returns (idx [B, Nq, k] int64 into keys, d2 [B, Nq, k]
-    float32 squared distances), ascending; the lowest index wins ties.
-    CPU tensors take the plain version; CUDA tensors launch kernel A."""
+    Nk.  Returns (idx [B, Nq, k] int64 into keys, d2 [B, Nq, k] float32
+    squared distances), ascending; the lowest index wins ties.  CPU tensors
+    take the plain version, for any k; CUDA tensors launch kernel A for
+    k <= 32 and kernel G for 32 < k <= 128, and raise ValueError above."""
     B, Nq = query.shape[:2]
     kernels.check(query, "query", torch.float32, (None, None, 3))
     kernels.check(keys, "keys", torch.float32, (B, None, 3))
     Nk = keys.shape[1]
-    if not 1 <= k <= min(MAX_K, Nk):
-        raise ValueError(f"k={k} outside [1, min({MAX_K}, Nk={Nk})]")
+    if not 1 <= k <= Nk:
+        raise ValueError(f"k={k} outside [1, Nk={Nk}]")
     if not kernels.on_cuda(query, keys):
         return knn_plain(query, keys, k)
+    if k > TOPK_MAX_K:
+        raise ValueError(f"knn on CUDA: k={k} above kernel G's limit "
+                         f"k <= {TOPK_MAX_K}")
+    kernel = kernels.KNN if k <= MAX_K else kernels.KNN_TOPK
     idx = torch.empty(B, Nq, k, dtype=torch.int64, device=query.device)
     d2 = torch.empty(B, Nq, k, dtype=torch.float32, device=query.device)
-    kernels.KNN.launch(query.device, query.data_ptr(), keys.data_ptr(),
-                       idx.data_ptr(), d2.data_ptr(), B, Nq, Nk, k)
+    kernel.launch(query.device, query.data_ptr(), keys.data_ptr(),
+                  idx.data_ptr(), d2.data_ptr(), B, Nq, Nk, k)
     return idx, d2
 
 

@@ -41,19 +41,20 @@ def farthest_point_sample(points: torch.Tensor, npoint: int) -> torch.Tensor:
 
     points [B, N, 3] float32, contiguous; 1 <= npoint <= N.  Returns
     [B, npoint] int64.  CPU tensors take the plain version; CUDA tensors
-    launch kernel B, which holds a cloud in shared memory (16 bytes a point)
-    and raises ValueError for an N that does not fit."""
+    launch kernel B, which holds a cloud in the shared memory of one block
+    or of a cluster of up to 8 blocks (16 bytes a point), and raises
+    ValueError for an N beyond that (`kernels.fps_max_points`, ~116,000 on
+    an H100)."""
     kernels.check(points, "points", torch.float32, (None, None, 3))
     B, N, _ = points.shape
     if not 1 <= npoint <= N:
         raise ValueError(f"npoint={npoint} outside [1, N={N}]")
     if not kernels.on_cuda(points):
         return fps_plain(points, npoint)
-    limit = kernels.fps_smem_limit(points.device)
-    if 16 * N > limit:
-        raise ValueError(
-            f"fps kernel: N={N} needs {16 * N} bytes of shared memory per "
-            f"cloud, the device allows {limit} (N <= {limit // 16})")
+    limit = kernels.fps_max_points(points.device)
+    if N > limit:
+        raise ValueError(f"fps kernel: N={N} above its limit N <= {limit} "
+                         f"on {points.device}")
     out = torch.empty(B, npoint, dtype=torch.int64, device=points.device)
     kernels.FPS.launch(points.device, points.data_ptr(), out.data_ptr(),
                        B, N, npoint)

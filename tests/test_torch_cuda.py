@@ -6,8 +6,9 @@ that every test worker collects the same tests).  Run on a card with
 `python -m pytest tests/test_torch_cuda.py -m cuda -q`.
 
 Shapes are small versions of the main path's (N not a multiple of
-anything, to exercise the ragged edges).  kNN and FPS must equal their
-plain versions exactly (both build d2 from the same rounded terms);
+anything, to exercise the ragged edges), but for FPS beyond one block's
+shared memory.  kNN (kernels A and G) and FPS must equal their plain
+versions exactly (both build d2 from the same rounded terms);
 neighbour max and its slot exactly; weighted sums and both backwards to
 1e-5 relative (FMA accumulation in the kernels, batched matmuls and
 atomic scatters in the plain versions).  The
@@ -84,11 +85,51 @@ def test_fps_equals_plain(cloud):
     assert torch.equal(idx, T.fps_plain(cloud, 125))
 
 
-def test_fps_rejects_a_cloud_too_large_for_shared_memory(device):
-    limit = kernels.fps_smem_limit(device)
-    pts = torch.zeros(1, limit // 16 + 1, 3, device=device)
-    with pytest.raises(ValueError, match="shared memory"):
-        T.farthest_point_sample(pts, 4)
+@pytest.mark.parametrize("n", ["one block + 1", 16384, 65536])
+def test_fps_beyond_one_block_equals_plain(device, n):
+    """Clouds that do not fit one block's shared memory take the cluster
+    kernel: the smallest such N, the lidar eval size, and 65,536."""
+    if n == "one block + 1":
+        n = kernels.fps_max_points(device, 1) + 1
+    assert kernels.fps_max_points(device) >= 65536
+    g = torch.Generator().manual_seed(n)
+    pts = (torch.randn(2, n, 3, generator=g) * 30).to(device)
+    m = 2048 if n == 16384 else 200
+    idx = _counted(kernels.FPS, T.farthest_point_sample, pts, m)
+    assert torch.equal(idx, T.fps_plain(pts, m))
+
+
+@pytest.mark.parametrize("k", [33, 50, 128])
+def test_knn_topk_self_equals_plain(device, k):
+    """Kernel G, with exact duplicates (the lower twin comes first)."""
+    g = torch.Generator().manual_seed(k)
+    pos = torch.randn(2, 1500, 3, generator=g) * 5
+    pos[:, 1000:1100] = pos[:, 0:100]
+    pos = pos.to(device)
+    idx, d2 = _counted(kernels.KNN_TOPK, T.knn, pos, pos, k)
+    pidx, pd2 = T.knn_plain(pos, pos, k)
+    assert torch.equal(idx, pidx) and torch.equal(d2, pd2)
+    assert torch.equal(idx[:, :1000, 0].cpu(), torch.arange(1000).expand(2, -1))
+    assert torch.equal(idx[:, 1000:1100, 0].cpu(),
+                       torch.arange(100).expand(2, -1))
+
+
+@pytest.mark.parametrize("k", [33, 50, 128])
+def test_knn_topk_cross_equals_plain(device, k):
+    g = torch.Generator().manual_seed(100 + k)
+    keys = torch.randn(3, 4100, 3, generator=g) * 5
+    keys[:, 3000:3050] = keys[:, 10:60]  # duplicate keys
+    query = torch.randn(3, 333, 3, generator=g) * 5
+    query[:, :20] = keys[:, 10:30]  # queries on duplicated keys
+    idx, d2 = _counted(kernels.KNN_TOPK, T.knn, query.to(device),
+                       keys.to(device), k)
+    pidx, pd2 = T.knn_plain(query, keys, k)
+    assert torch.equal(idx.cpu(), pidx) and torch.equal(d2.cpu(), pd2)
+
+
+def test_knn_above_kernel_g_limit_raises(cloud):
+    with pytest.raises(ValueError, match="k <= 128"):
+        T.knn(cloud, cloud, 129)
 
 
 @pytest.mark.parametrize("P,C,rows,keys_n,k", [

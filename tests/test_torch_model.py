@@ -186,15 +186,19 @@ def test_converter_names_and_layouts():
 
 
 def test_port_imports_no_jax():
-    """The port must run where jax is not installed."""
+    """The port must run where jax and sklearn are not installed."""
     code = (
         "import sys\n"
         "import dh3d_tpu_torch, dh3d_tpu_torch.kernels, dh3d_tpu_torch.ops\n"
         "import dh3d_tpu_torch.nn, dh3d_tpu_torch.eval, dh3d_tpu_torch.entry\n"
         "import dh3d_tpu_torch.losses, dh3d_tpu_torch.train\n"
-        "import dh3d_tpu_torch.train.__main__\n"
-        "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'flax', 'dh3d_tpu'))\n"
+        "import dh3d_tpu_torch.train.__main__, dh3d_tpu_torch.data\n"
+        "import dh3d_tpu_torch.data.synthetic, dh3d_tpu_torch.eval.nms\n"
+        "import dh3d_tpu_torch.eval.retrieval, dh3d_tpu_torch.evaluate\n"
+        "import dh3d_tpu_torch.evaluate.localdesc_extract\n"
+        "import dh3d_tpu_torch.evaluate.globaldesc_extract\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'flax', 'dh3d_tpu', 'sklearn'))\n"
         "assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)

@@ -352,7 +352,7 @@ def test_wrappers_check_their_inputs(cloud, knn8):
         T.farthest_point_sample(x.transpose(0, 1).contiguous()
                                 .transpose(0, 1), 8)
     with pytest.raises(ValueError, match="k="):
-        T.knn(x, x, 33)
+        T.knn(x, x, N + 1)  # more neighbours than keys
     with pytest.raises(ValueError, match="shape"):
         T.weighted_sum(x, _t(knn8), torch.ones(B, N, 4, 1))
     with pytest.raises(ValueError, match="P="):
@@ -370,14 +370,65 @@ def test_cpu_path_never_builds_or_counts(cloud, knn8):
     and no launch is counted."""
     kernels.reset_counts()
     T.knn_bruteforce(_t(cloud), K)
+    T.knn_bruteforce(_t(cloud), 50)  # kernel G's plain version
     T.farthest_point_sample(_t(cloud), 16)
     T.flex_pool(_t(cloud), _t(knn8))
     T.conv_pointset(_t(cloud), _t(knn8), torch.ones(3, 2), torch.zeros(2))
     f = _t(cloud).requires_grad_()
     T.flex_pool(f, _t(knn8))[0].sum().backward()  # kernel F's plain version
-    assert kernels.counts() == {"knn": 0, "fps": 0, "weighted_sum": 0,
-                                "neighbor_max": 0, "weighted_sum_backward": 0,
+    assert kernels.counts() == {"knn": 0, "knn_topk": 0, "fps": 0,
+                                "weighted_sum": 0, "neighbor_max": 0,
+                                "weighted_sum_backward": 0,
                                 "neighbor_max_backward": 0}
     assert kernels._library is None
     path = kernels.library_path()
     assert path.startswith(kernels.BUILD_DIR) and path.endswith(".so")
+
+
+# ----------------------- kernel G: kNN at large k -----------------------
+
+def test_knn_k50_self_matches_pallas_slab_and_oracle(rng):
+    """k=50 runs (it raised above k=32 before) and equals the slab kernel
+    `_knn_kernel_slab`, which `knn_pallas` takes for every k >= 32, and the
+    reference oracle.  Indices exact; d2 to 1e-6 relative (the interpreter
+    may fuse the d2 build into FMAs, the port does not); the oracle's
+    float64 distances to 1e-5 absolute."""
+    pos = (rng.randn(2, 300, 3) * 3).astype(np.float32)
+    ti, td = T.knn(_t(pos), _t(pos), 50)
+    assert ti.shape == (2, 300, 50) and td.shape == (2, 300, 50)
+    pi, pd = knn_pallas(_j(pos), _j(pos), 50, interpret=True)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(pi))
+    np.testing.assert_allclose(td.numpy(), np.asarray(pd), rtol=1e-6)
+    oi, od = oracles.knn_oracle(pos, 50)
+    np.testing.assert_array_equal(ti.numpy(), oi)
+    np.testing.assert_allclose(np.sqrt(td.numpy()), od, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(ti.numpy()[..., 0],
+                                  np.broadcast_to(np.arange(300), (2, 300)))
+
+
+def test_knn_k50_cross_matches_pallas_slab_three_slabs(rng):
+    """128 queries against 4,100 keys: `knn_pallas` pads the keys to 4,224
+    and then to three 2,048-key slabs, so its merge across slabs runs.
+    Exactness as in the self test."""
+    keys = (rng.randn(1, 4100, 3) * 3).astype(np.float32)
+    query = (rng.randn(1, 128, 3) * 3).astype(np.float32)
+    ti, td = T.knn(_t(query), _t(keys), 50)
+    pi, pd = knn_pallas(_j(query), _j(keys), 50, interpret=True)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(pi))
+    np.testing.assert_allclose(td.numpy(), np.asarray(pd), rtol=1e-6)
+    bi, bd = T.knn_bruteforce_pairwise(_t(query), _t(keys), 50)
+    assert torch.equal(bi, ti) and torch.equal(bd, torch.sqrt(td))
+    d = np.sqrt(((query[0, :, None].astype(np.float64) - keys[0, None]) ** 2)
+                .sum(-1))
+    oi = np.argsort(d, axis=-1, kind="stable")[:, :50]
+    np.testing.assert_array_equal(ti.numpy()[0], oi)
+
+
+def test_fps_n9000_matches_pallas(rng):
+    """The dso eval size, N=9000 (no multiple of 128), at a small m:
+    indices exact against the Pallas FPS in interpret mode."""
+    pts = (rng.randn(1, 9000, 3) * 10).astype(np.float32)
+    ti = T.farthest_point_sample(_t(pts), 24).numpy()
+    np.testing.assert_array_equal(
+        ti, np.asarray(fps_pallas(_j(pts), 24, interpret=True)))
+    assert len(set(ti[0])) == 24
