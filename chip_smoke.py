@@ -11,8 +11,18 @@ result line:
   2. build the kernels from `dh3d_tpu_torch/csrc` (one nvcc per source, in
      parallel; timed).
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes the forward and the train step give it, both timed with CUDA
-     events (median of 10 after warm-up).
+     shapes the forward, the train step and the extraction give it.  Each
+     case is timed as device time (`device_ms`: calls queued back to back
+     behind a sleep kernel, between two CUDA events, so the host's launch
+     work is hidden).  Beside each: its bound (`bound`: the bytes of its
+     inputs and outputs over the memory rate or its f32 operations over the
+     f32 rate, whichever is larger) and, where PyTorch has one, the library
+     route for the same function (`library_ms`).  Kernels E and F run at
+     every shape of the train step (`backward_cases`), with the CSR inverse
+     handed in (as on the path: `ms`, bounded by the inverse's bytes) and
+     built in the call (`ms_fresh_inverse`, bounded by nbh's), and must
+     give the same bits both ways and on a second run; the inverse's build
+     is timed alone.
   4. the main-path forward (`dh3d_tpu_torch.entry.entry`) at [20, 8192]:
      every forward kernel's launch count over that one forward must be > 0;
      the outputs must be finite, of the model's shapes, with unit-norm
@@ -27,8 +37,10 @@ result line:
      one step every kernel A-F is launched; loss and metrics are finite;
      every trainable gradient is finite and nonzero (but the biases that
      feed a BatchNorm, whose exact gradient is 0); the BN running
-     statistics move.  Step time (CUDA events), clouds/s, peak memory, the
-     forward / backward / optimizer split and a `torch.profiler` split.
+     statistics move; each neighbourhood's CSR inverse is built once.  Step
+     time (CUDA events), clouds/s, peak memory, the forward / backward /
+     optimizer split and a `torch.profiler` split, with the device time of
+     kernels E and F and of the inverse builds.
   7. one train step at [2, 8192] on the card and on the CPU, same weights
      and batch: Morton order, kNN, FPS, 3-NN and the detection loss's kNN
      equal; losses and gradients within the tolerances below.
@@ -50,6 +62,24 @@ result line:
      differ between card-forward + card-NMS and CPU-forward + CPU-NMS are
      counted (reported, not checked).
 The last three lines: the card, the kernels JSON, the ok JSON.
+
+To compare two trees of the port on one card (run them in turns: parent,
+change, change, parent, in one call):
+
+    python3 chip_smoke.py --ab-root DIR --label NAME [--out OUT]
+    python3 chip_smoke.py --ab-compare OUT/ab_*.json
+
+The first imports `dh3d_tpu_torch` from DIR (a checkout, or a tree unpacked
+there with `git archive`; it needs `ops.inverse_neighbors` and the kernel
+launch counts) and writes OUT/ab_NAME.json (OUT defaults to `chiprun_out`
+beside this script): for every case of `backward_cases`, the output's
+sha256 and the device time of the op called without an inverse (the
+tree's own route: it builds the inverse in the call, as the parent of the
+shared inverse did on its path) and of the build alone; over one
+full-width train step, the inverses built, the launches of E and F, the
+profiler's device time of E, F and the builds, the step time (median of 7)
+and the peak memory.  The second checks that every case's hash agrees
+across the files.
 """
 
 from __future__ import annotations
@@ -64,6 +94,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from functools import partial
 
 import numpy as np
 
@@ -111,7 +142,11 @@ SOURCES = {
     "weighted_sum_backward": "dh3d_tpu_torch/csrc/neighborhood.cu",
     "neighbor_max_backward": "dh3d_tpu_torch/csrc/neighborhood.cu",
 }
-CSR_MS = {}  # phase 3's timings of the CSR inverse, for the report
+# The card's rates for the bounds (H100 SXM datasheet: HBM3, and f32
+# outside the tensor cores)
+MEMORY_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+SLEEP_CYCLES = 20_000_000  # ~10 ms of device time ahead of queued calls
 # the forward (phase 4) runs A-D; the train step (phase 6) A-F; the local
 # extraction with NMS (phase 8) A-D and G
 FORWARD_KERNELS = ("knn", "fps", "weighted_sum", "neighbor_max")
@@ -134,7 +169,8 @@ def card_line() -> str:
 
 
 def cuda_ms(torch, fn, warmup=3, reps=10) -> float:
-    """Median device time of fn() in ms, CUDA events around each call."""
+    """Median time of one fn() in ms, CUDA events around each call (the
+    host's launch work included)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -150,28 +186,170 @@ def cuda_ms(torch, fn, warmup=3, reps=10) -> float:
     return statistics.median(times)
 
 
-def kernel_phase(torch, T, device):
-    """Phase 3: each kernel against its plain version at main-path shapes.
-    Returns {kernel name: [case dict, ...]}, the main-path case first."""
+def device_ms(torch, fn, reps=5) -> float:
+    """Device time of fn() in ms: up to 20 calls (~10 ms of them) queued
+    behind a sleep kernel, so that the device runs them back to back
+    whatever the host's launch work, between two CUDA events, over the
+    count; median of `reps`.  A call that waits for the host (a sync, a
+    host loop longer than the sleep) counts that wait."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    n = max(1, min(20, int(0.01 / max(time.perf_counter() - t0, 1e-6))))
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def bound(nbytes, ops):
+    """(ms, what sets it): the least time the card could take for work that
+    moves `nbytes` and does `ops` f32 operations."""
+    by_bytes = nbytes / MEMORY_BYTES_PER_S * 1e3
+    by_ops = ops / F32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                          "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def sparse_rows(torch, nbh, w, m):
+    """The weighted sum as a sparse matrix: rows (b, n, p), columns (b, j),
+    w[b, n, k, p] at column (b, nbh[b, n, k]); CSR [B*N*P, B*M]."""
+    B, N, K, P = w.shape
+    cols = nbh + m * torch.arange(B, device=nbh.device)[:, None, None]
+    cols = cols[:, :, None, :].expand(B, N, P, K).reshape(-1)
+    crow = torch.arange(0, B * N * P * K + 1, K, device=nbh.device)
+    return torch.sparse_csr_tensor(crow, cols, w.transpose(2, 3).reshape(-1),
+                                   size=(B * N * P, B * m))
+
+
+def train_geometry(torch, T, device):
+    """The train step's neighbourhoods on the seeded clouds of `entry`:
+    Morton-sorted points [20, 8192], their FPS subsample [20, 1024] (ids
+    sorted), the self kNN k=8 at both levels, and the 3-NN map (d2, idx)
+    from the points to the subsample."""
     from dh3d_tpu_torch.entry import entry_points
 
     B, N, M, K = 20, 8192, 1024, 8
-    g = torch.Generator(device="cpu").manual_seed(0)
     raw = torch.from_numpy(entry_points(B, N)).to(device)
     perm, _ = T.morton_perm(raw)
     pts = torch.gather(raw, 1, perm[..., None].expand(-1, -1, 3)).contiguous()
+    sub_idx = torch.sort(T.farthest_point_sample(pts, M), dim=-1).values
+    sub = T.gather_point(pts, sub_idx).contiguous()
+    return (pts, sub, T.knn(pts, pts, K)[0], T.knn(sub, sub, K)[0],
+            T.three_nn(pts, sub))
+
+
+def backward_cases(torch, T, device):
+    """Kernels E and F at every shape of the `detection_config` train step
+    ([20, 8192], 512 keypoints), and E once on random ids, on seeded inputs
+    that are the same on every tree of the port.  One dict a case: `name`
+    (the kernel) and `label`; `call(*inverse)`, the op, which builds its
+    own CSR inverse when given none; `nbh` and `keys`, its neighbourhood
+    and key count; `reads`, the other tensors it reads; `ops`, its f32
+    operations; `plain`, its plain version, which is the library route
+    (einsum + `index_add_`, gather + `scatter_add_`); `library_call`, that
+    route's last call alone on prepared operands."""
+    pts, sub, nbh, nbh1, (d2_3, idx3) = train_geometry(torch, T, device)
+    B, N, K = nbh.shape
+    M = sub.shape[1]
+    g = torch.Generator(device="cpu").manual_seed(1)
+    w4, w4s = T.flex_weights(pts, nbh), T.flex_weights(sub, nbh1)
+    w3 = T.inverse_distance_weights(d2_3)[..., None].contiguous()
+    rnd = torch.randint(0, N, (B, N, K), generator=g).to(device)
+    cases = []
+    for label, C, idx, w, keys in (
+            (f"P=4 C=64 K=8 [{B},{N}]", 64, nbh, w4, N),
+            (f"P=4 C=32 K=8 [{B},{N}]", 32, nbh, w4, N),
+            (f"P=4 C=64 K=8 [{B},{M}]", 64, nbh1, w4s, M),
+            (f"P=4 C=128 K=8 [{B},{M}]", 128, nbh1, w4s, M),
+            (f"P=1 C=128 K=3 [{B},{N}]->[{B},{M}]", 128, idx3, w3, M),
+            (f"P=4 C=64 K=8 [{B},{N}] random idx", 64, rnd, w4, N)):
+        P = w.shape[-1]
+        dm = torch.randn(B, idx.shape[1], P * C, generator=g).to(device)
+        contrib = torch.einsum("bnkp,bnpc->bnkc", w,
+                               dm.view(B, -1, P, C)).reshape(-1, C)
+        rows = (idx + keys * torch.arange(B, device=device)[:, None, None]
+                ).reshape(-1)
+        cases.append(dict(
+            name="weighted_sum_backward", label=label, nbh=idx, keys=keys,
+            call=partial(T.weighted_sum_backward, dm, idx, w, keys),
+            reads=(dm, w), ops=2 * w.numel() * C,
+            plain=partial(T.weighted_sum_backward_plain, dm, idx, w, keys),
+            library_call=partial(dm.new_zeros(B * keys, C).index_add_, 0,
+                                 rows, contrib)))
+    for label, C, idx, keys in ((f"C=32 K=8 [{B},{N}]", 32, nbh, N),
+                                (f"C=64 K=8 [{B},{N}]", 64, nbh, N),
+                                (f"C=128 K=8 [{B},{M}]", 128, nbh1, M)):
+        feat = torch.randn(B, keys, C, generator=g).to(device)
+        slot = T.neighbor_max_with_slot(feat, idx)[2]
+        dval = torch.randn(B, idx.shape[1], C, generator=g).to(device)
+        ids = torch.gather(idx, 2, slot.long())
+        cases.append(dict(
+            name="neighbor_max_backward", label=label, nbh=idx, keys=keys,
+            call=partial(T.neighbor_max_backward, dval, idx, slot, keys),
+            reads=(dval, slot), ops=2 * idx.numel() * C,
+            plain=partial(T.neighbor_max_backward_plain, dval, idx, slot,
+                          keys),
+            library_call=partial(dval.new_zeros(B, keys, C).scatter_add_, 1,
+                                 ids, dval)))
+    return cases
+
+
+def kernel_phase(torch, T, device):
+    """Phase 3: each kernel against its plain version at main-path shapes.
+    Returns {kernel name: [case dict, ...]}, the main-path case first."""
+    pts, sub, nbh, _, (d2_3, idx3) = train_geometry(torch, T, device)
+    B, N, K = nbh.shape
+    M = sub.shape[1]
+    g = torch.Generator(device="cpu").manual_seed(0)
     cases = {name: [] for name in REPLACES}
 
-    def case(name, shape, kernel_fn, plain_fn, compare):
+    def flat(out):
+        return list(out) if isinstance(out, (tuple, list)) else [out]
+
+    def case(name, shape, kernel_fn, plain_fn, compare, inputs, ops,
+             library_fn=None, **extra):
+        """Compare, time and bound one kernel case.  `inputs`: the tensors
+        the function reads (its outputs are counted from the kernel's);
+        `ops`: its f32 operations; `library_fn`: one PyTorch call or
+        library route for the same function, checked like the plain
+        version; `extra`: more timed routes, name -> fn."""
         out, ref = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         err = compare(out, ref)
-        ms = cuda_ms(torch, kernel_fn)
-        plain_ms = cuda_ms(torch, plain_fn)
-        cases[name].append({"shape": shape, "max_abs_err": err, "ms": ms,
-                            "plain_ms": plain_ms})
-        log(f"  {name:13s} {shape:42s} kernel {ms:9.3f} ms  plain "
-            f"{plain_ms:9.3f} ms  max_abs_err {err:.3g}")
+        row = {"shape": shape, "max_abs_err": err,
+               "ms": device_ms(torch, kernel_fn),
+               "plain_ms": device_ms(torch, plain_fn)}
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes(*inputs, *flat(out)), ops)
+        row["library_ms"] = None
+        if library_fn is not None:
+            compare(library_fn(), ref)
+            row["library_ms"] = device_ms(torch, library_fn)
+        for key, fn in extra.items():
+            row[key] = device_ms(torch, fn)
+        cases[name].append(row)
+        lib = row["library_ms"]
+        log(f"  {name:13s} {shape:42s} kernel {row['ms']:8.3f} ms  plain "
+            f"{row['plain_ms']:9.3f}  bound {row['bound_ms']:6.3f} "
+            f"({row['bound_by']})  library "
+            f"{'-' if lib is None else f'{lib:.3f}'}  max_abs_err {err:.3g}"
+            + "".join(f"  {k} {v:.3f}" for k, v in row.items()
+                      if k in extra))
 
     def same_knn(out, ref):
         assert torch.equal(out[0], ref[0]), "kNN indices differ"
@@ -194,97 +372,84 @@ def kernel_phase(torch, T, device):
             assert torch.equal(out[2], ref[2]), "argmax slots differ"
         return 0.0
 
+    def knn_case(name, shape, q, keys, k):
+        case(name, shape, lambda: T.knn(q, keys, k),
+             lambda: T.knn_plain(q, keys, k), same_knn, (q, keys),
+             8 * q.shape[0] * q.shape[1] * keys.shape[1])
+
+    def fps_case(shape, p, m):
+        case("fps", shape, lambda: T.farthest_point_sample(p, m),
+             lambda: T.fps_plain(p, m), same, (p,),
+             9 * p.shape[0] * p.shape[1] * m)
+
     # A: self-kNN at both levels, and the 3-NN upsample lookup
-    case("knn", f"self k=8 [{B},{N}]", lambda: T.knn(pts, pts, K),
-         lambda: T.knn_plain(pts, pts, K), same_knn)
-    sub_idx = torch.sort(T.farthest_point_sample(pts, M), dim=-1).values
-    sub = T.gather_point(pts, sub_idx).contiguous()
-    case("knn", f"self k=8 [{B},{M}]", lambda: T.knn(sub, sub, K),
-         lambda: T.knn_plain(sub, sub, K), same_knn)
-    case("knn", f"cross k=3 [{B},{N}]->[{B},{M}]", lambda: T.knn(pts, sub, 3),
-         lambda: T.knn_plain(pts, sub, 3), same_knn)
+    knn_case("knn", f"self k=8 [{B},{N}]", pts, pts, K)
+    knn_case("knn", f"self k=8 [{B},{M}]", sub, sub, K)
+    knn_case("knn", f"cross k=3 [{B},{N}]->[{B},{M}]", pts, sub, 3)
 
     # B: FPS 8192 -> 1024
-    case("fps", f"[{B},{N}]->{M}", lambda: T.farthest_point_sample(pts, M),
-         lambda: T.fps_plain(pts, M), same)
+    fps_case(f"[{B},{N}]->{M}", pts, M)
 
     # C: the flex-conv moments, initconv's difference sum, the upsample,
-    # and once on random (non-banded) indices
-    nbh, _ = T.knn(pts, pts, K)
+    # and once on random (non-banded) indices; library: one sparse product
+    def wsum_case(shape, f, idx, w):
+        S = sparse_rows(torch, idx, w, f.shape[1])  # built once, not timed
+        f2 = f.reshape(-1, f.shape[-1])
+        case("weighted_sum", shape, lambda: T.weighted_sum(f, idx, w),
+             lambda: T.weighted_sum_plain(f, idx, w), wsum_close,
+             (f, idx, w), 2 * w.numel() * f.shape[-1],
+             library_fn=lambda: torch.sparse.mm(S, f2).reshape(
+                 idx.shape[0], idx.shape[1], -1))
+
     f64 = torch.randn(B, N, 64, generator=g).to(device)
     w4 = T.flex_weights(pts, nbh)
-    case("weighted_sum", f"P=4 C=64 K=8 [{B},{N}]",
-         lambda: T.weighted_sum(f64, nbh, w4),
-         lambda: T.weighted_sum_plain(f64, nbh, w4), wsum_close)
+    wsum_case(f"P=4 C=64 K=8 [{B},{N}]", f64, nbh, w4)
     w1 = torch.ones(B, N, K, 1, device=device)
     w1[:, :, 0] = 1 - K
-    case("weighted_sum", f"P=1 C=3 K=8 [{B},{N}] (raw xyz)",
-         lambda: T.weighted_sum(pts, nbh, w1),
-         lambda: T.weighted_sum_plain(pts, nbh, w1), wsum_close)
-    d2_3, idx3 = T.three_nn(pts, sub)
+    wsum_case(f"P=1 C=3 K=8 [{B},{N}] (raw xyz)", pts, nbh, w1)
     w3 = T.inverse_distance_weights(d2_3)[..., None].contiguous()
     f256 = torch.randn(B, M, 256, generator=g).to(device)
-    case("weighted_sum", f"P=1 C=256 K=3 [{B},{N}]<-[{B},{M}]",
-         lambda: T.weighted_sum(f256, idx3, w3),
-         lambda: T.weighted_sum_plain(f256, idx3, w3), wsum_close)
+    wsum_case(f"P=1 C=256 K=3 [{B},{N}]<-[{B},{M}]", f256, idx3, w3)
     rnd = torch.randint(0, N, (B, N, K), generator=g).to(device)
-    case("weighted_sum", f"P=4 C=64 K=8 [{B},{N}] random idx",
-         lambda: T.weighted_sum(f64, rnd, w4),
-         lambda: T.weighted_sum_plain(f64, rnd, w4), wsum_close)
+    wsum_case(f"P=4 C=64 K=8 [{B},{N}] random idx", f64, rnd, w4)
 
     # D: flex_pool of stage 1, without and with the slot of the backward
     case("neighbor_max", f"C=64 K=8 [{B},{N}]",
          lambda: T.neighbor_max(f64, nbh),
-         lambda: T.neighbor_max_plain(f64, nbh)[:2], same_max)
+         lambda: T.neighbor_max_plain(f64, nbh)[:2], same_max, (f64, nbh),
+         nbh.numel() * 64)
     case("neighbor_max", f"C=64 K=8 [{B},{N}] with slot",
          lambda: T.neighbor_max_with_slot(f64, nbh),
-         lambda: T.neighbor_max_plain(f64, nbh), same_max)
+         lambda: T.neighbor_max_plain(f64, nbh), same_max, (f64, nbh),
+         nbh.numel() * 64)
 
     # A at k=16 across clouds: the detection loss's keypoint queries
     P2, KP = B // 2, 512
     kp = pts[:P2, :KP].contiguous() + 0.25
-    case("knn", f"cross k=16 [{P2},{KP}]->[{P2},{N}]",
-         lambda: T.knn(kp, pts[:P2].contiguous(), 16),
-         lambda: T.knn_plain(kp, pts[:P2].contiguous(), 16), same_knn)
+    knn_case("knn", f"cross k=16 [{P2},{KP}]->[{P2},{N}]", kp,
+             pts[:P2].contiguous(), 16)
 
-    # E: the transposes of C (CSR inverse built inside, as on the path)
-    nbh1, _ = T.knn(sub, sub, K)
-    w4s = T.flex_weights(sub, nbh1)
-    dm64 = torch.randn(B, N, 4 * 64, generator=g).to(device)
-    dm128 = torch.randn(B, M, 4 * 128, generator=g).to(device)
-    dm3 = torch.randn(B, N, 128, generator=g).to(device)
-    for label, dm, idx, w, keys in (
-            (f"P=4 C=64 K=8 [{B},{N}]", dm64, nbh, w4, N),
-            (f"P=4 C=128 K=8 [{B},{M}]", dm128, nbh1, w4s, M),
-            (f"P=1 C=128 K=3 [{B},{N}]->[{B},{M}]", dm3, idx3, w3, M),
-            (f"P=4 C=64 K=8 [{B},{N}] random idx", dm64, rnd, w4, N)):
-        case("weighted_sum_backward", label,
-             lambda: T.weighted_sum_backward(dm, idx, w, keys),
-             lambda: T.weighted_sum_backward_plain(dm, idx, w, keys),
-             wsum_close)
-
-    # the CSR inverse that E and F build inside their wrappers (integer
-    # sorts, not a kernel of this repository): its share of their times
-    for label, idx, keys in ((f"K=8 [{B},{N}]", nbh, N),
-                             (f"K=8 [{B},{M}]", nbh1, M),
-                             (f"K=3 [{B},{N}]->[{B},{M}]", idx3, M)):
-        ms = cuda_ms(torch, lambda: T.inverse_neighbors(idx, keys))
-        CSR_MS[label] = ms
-        log(f"  (CSR inverse   {label:42s}          {ms:9.3f} ms)")
-
-    # F: the max-pool transposes of initconv, stage 1 and stage 2
-    f32 = torch.randn(B, N, 32, generator=g).to(device)
-    f128 = torch.randn(B, M, 128, generator=g).to(device)
-    for label, feat, idx, keys in ((f"C=32 K=8 [{B},{N}]", f32, nbh, N),
-                                   (f"C=64 K=8 [{B},{N}]", f64, nbh, N),
-                                   (f"C=128 K=8 [{B},{M}]", f128, nbh1, M)):
-        slot = T.neighbor_max_with_slot(feat, idx)[2]
-        dval = torch.randn(feat.shape[0], idx.shape[1], feat.shape[2],
-                           generator=g).to(device)
-        case("neighbor_max_backward", label,
-             lambda: T.neighbor_max_backward(dval, idx, slot, keys),
-             lambda: T.neighbor_max_backward_plain(dval, idx, slot, keys),
-             wsum_close)
+    # E and F at every shape of the train step: the inverse handed in (as
+    # on the path: `ms`, bounded by the bytes of the inverse it reads) and
+    # built in the call (`ms_fresh_inverse`, bounded by those of nbh); both
+    # give the same bits, as does a second run.  Library: the plain
+    # version's route and its last call alone; the build alone.
+    for c in backward_cases(torch, T, device):
+        inv = T.NeighborInverse(c["nbh"], c["keys"])
+        csr = inv.get()
+        path, fresh = partial(c["call"], inv), c["call"]
+        out = path()
+        assert torch.equal(out, path()), f"{c['label']}: two runs differ"
+        assert torch.equal(out, fresh()), \
+            f"{c['label']}: shared and fresh inverse differ"
+        case(c["name"], c["label"], path, c["plain"], wsum_close,
+             (*c["reads"], *csr), c["ops"], library_fn=c["plain"],
+             ms_fresh_inverse=fresh,
+             inverse_build_ms=partial(T.inverse_neighbors, c["nbh"],
+                                      c["keys"]),
+             library_call_ms=c["library_call"])
+        cases[c["name"]][-1]["fresh_bound_ms"] = bound(
+            nbytes(*c["reads"], c["nbh"], out), c["ops"])[0]
 
     # G: keypoint NMS's 50-NN of a normalised lidar eval cloud (loader
     # order), the same across clouds, and the ends of G's k range; B on the
@@ -294,25 +459,19 @@ def kernel_phase(torch, T, device):
             [eval_cloud(s, numpts) for s in seeds])).to(device)
 
     lidar = clouds([0], 16384)
-    case("knn_topk", "self k=50 [1,16384]", lambda: T.knn(lidar, lidar, 50),
-         lambda: T.knn_plain(lidar, lidar, 50), same_knn)
+    knn_case("knn_topk", "self k=50 [1,16384]", lidar, lidar, 50)
     keys4 = clouds([1, 2, 3, 4], 16384)
     q4 = (keys4[:, ::8] + 0.05).contiguous()
-    case("knn_topk", "cross k=50 [4,2048]x[4,16384]",
-         lambda: T.knn(q4, keys4, 50), lambda: T.knn_plain(q4, keys4, 50),
-         same_knn)
+    knn_case("knn_topk", "cross k=50 [4,2048]x[4,16384]", q4, keys4, 50)
     small = clouds([5, 6], 3000)
     for k in (33, 128):
-        case("knn_topk", f"self k={k} [2,3000]",
-             lambda: T.knn(small, small, k),
-             lambda: T.knn_plain(small, small, k), same_knn)
+        knn_case("knn_topk", f"self k={k} [2,3000]", small, small, k)
     dso = clouds([7], 9000)
     big = torch.from_numpy(lidar_like_scan(8, n_points=40000)[None]).to(device)
     for label, pts_, m in (("[1,16384]->2048", lidar, 2048),
                            ("[1,9000]->1125", dso, 1125),
                            ("[1,40000]->5000", big, 5000)):
-        case("fps", label, lambda: T.farthest_point_sample(pts_, m),
-             lambda: T.fps_plain(pts_, m), same)
+        fps_case(label, pts_, m)
     return cases
 
 
@@ -399,12 +558,42 @@ def check_gradients(torch, state, cfg):
     return n
 
 
+class InverseBuilds:
+    """Counts the CSR inverses built while it is entered (the
+    neighbourhood tensor of each) and marks each build as a
+    `torch.profiler` range `csr_inverse`, by wrapping
+    `ops.neighborhood.inverse_neighbors`, which every build goes through."""
+
+    def __enter__(self):
+        import torch
+        from dh3d_tpu_torch.ops import neighborhood
+
+        self.module, self.real, self.nbh = (
+            neighborhood, neighborhood.inverse_neighbors, [])
+
+        def counted(nbh, m):
+            self.nbh.append(nbh)
+            with torch.profiler.record_function("csr_inverse"):
+                return self.real(nbh, m)
+
+        neighborhood.inverse_neighbors = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.module.inverse_neighbors = self.real
+
+    def distinct(self) -> int:
+        return len({id(t) for t in self.nbh})
+
+
 def profile_step(torch, step):
-    """Device time of one step by kernel class, from torch.profiler."""
+    """Device time of one step by kernel class, from torch.profiler; and of
+    kernels E and F and the CSR inverse builds (`csr_inverse` ranges)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            InverseBuilds():
         step()
         torch.cuda.synchronize()
     classes = (
@@ -419,13 +608,23 @@ def profile_step(torch, step):
         ("elementwise", ("elementwise", "vectorized", "unrolled")),
     )
     split = {}
+    backward = {"E weighted_sum_bwd": 0.0, "F neighbor_max_bwd": 0.0,
+                "csr_inverse builds": 0.0}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            if e.name == "csr_inverse":
+                backward["csr_inverse builds"] += e.device_time_total / 1e3
             continue
         name = e.name.lower()
+        ms = e.time_range.elapsed_us() / 1e3
         cls = next((c for c, keys in classes
                     if any(k in name for k in keys)), "other")
-        split[cls] = split.get(cls, 0.0) + e.time_range.elapsed_us() / 1e3
+        split[cls] = split.get(cls, 0.0) + ms
+        for key in ("E weighted_sum_bwd", "F neighbor_max_bwd"):
+            if key.split()[1] in name:
+                backward[key] += ms
+    backward["total"] = sum(backward.values())
+    split["E + F + inverse builds"] = backward
     return split
 
 
@@ -446,13 +645,17 @@ def train_phase(torch, kernels, device):
     batch = to_device(next(batches), device)
     torch.cuda.synchronize()
     kernels.reset_counts()
-    metrics = step_fn(state, batch)
-    torch.cuda.synchronize()
+    with InverseBuilds() as builds:
+        metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
     launches = kernels.counts()
-    log(f"  launches in one train step: {launches}")
+    log(f"  launches in one train step: {launches}; CSR inverses built: "
+        f"{len(builds.nbh)}")
     for name in TRAIN_KERNELS:
         assert launches[name] > 0, \
             f"kernel {name} was not launched by the train step"
+    assert builds.nbh and len(builds.nbh) == builds.distinct(), \
+        "a neighbourhood's CSR inverse was built more than once"
     metrics = {k: float(v) for k, v in metrics.items()}
     assert all(map(math.isfinite, metrics.values())), metrics
     n_grads = check_gradients(torch, state, cfg)
@@ -502,7 +705,7 @@ def train_phase(torch, kernels, device):
               "step_ms": step_ms, "clouds_per_s": B2 / (step_ms / 1e3),
               "parts_ms": parts, "peak_mem_gb": peak_gb,
               "profile_ms": split, "last_metrics": last,
-              "launches": launches}
+              "launches": launches, "inverse_builds": len(builds.nbh)}
     log(f"  train step: {step_ms:.2f} ms median of 7 (CUDA events), "
         f"{B2 / (step_ms / 1e3):.1f} clouds/s; {parts}; peak {peak_gb:.2f} GB")
     log(f"  profile of one step (device ms): {split}")
@@ -543,8 +746,8 @@ def card_vs_cpu_train(torch, device):
             "idx": {"morton xyz": outs["xyz"].detach().cpu(),
                     "knn k=8 [8192]": outs["knn_indices"].cpu(),
                     "fps": caches[0]["kp_idx"].cpu(),
-                    "knn k=8 [1024]": caches[0]["knn_indices"].cpu(),
-                    "3-nn": caches[0]["interp"][1].cpu(),
+                    "knn k=8 [1024]": caches[0]["knn"].nbh.cpu(),
+                    "3-nn": caches[0]["interp"][1].nbh.cpu(),
                     "det-loss knn k=16": cand[..., :cfg.det_k].cpu()},
             "hardest": cand[..., cfg.det_k:].cpu(), "ar": ar.cpu(),
             "s": seconds}
@@ -703,8 +906,8 @@ def card_vs_cpu_extraction(torch, T, device):
             "idx": {"morton-sorted xyz": sorted_xyz.cpu(),
                     "knn k=8 [16384]": outs["knn_indices"].cpu(),
                     "fps 16384->2048": cache["kp_idx"].cpu(),
-                    "knn k=8 [2048]": cache["knn_indices"].cpu(),
-                    "3-nn": cache["interp"][1].cpu()},
+                    "knn k=8 [2048]": cache["knn"].nbh.cpu(),
+                    "3-nn": cache["interp"][1].nbh.cpu()},
             "out": {k: outs[k].cpu() for k in ("local_desc", "attention",
                                                "xyz_feat_att", "feat")},
             "rows": rows, "s": seconds}
@@ -885,9 +1088,9 @@ def main():
                                  "train_step": train_launches[name],
                                  "extract_local": extract_launches[name]},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+            **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
             "shape": main_case["shape"], "cases": rows})
-    train_report["csr_inverse_ms"] = CSR_MS
     log(json.dumps({"train_step": train_report}))
     log(json.dumps({"extract_local": extract_report}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -898,5 +1101,101 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def ab_run(root, label, out_dir):
+    """One tree's side of a comparison (see the module docstring)."""
+    import hashlib
+
+    out_dir = os.path.abspath(out_dir)
+    sys.path.insert(0, os.path.abspath(root))
+    os.chdir(root)  # the train step reads models/demo_stage2.*
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py: torch.cuda.is_available() is False")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from dh3d_tpu_torch import kernels
+    from dh3d_tpu_torch import ops as T
+    from dh3d_tpu_torch.train import (make_train_step,
+                                      synthetic_local_batches, to_device)
+
+    assert kernels.__file__.startswith(os.getcwd()), kernels.__file__
+    device = torch.device("cuda", 0)
+    kernels.library()
+
+    def sha(t):
+        return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+    report = {"label": label, "root": root, "card": card_line(), "cases": {}}
+    for c in backward_cases(torch, T, device):
+        out = c["call"]()
+        assert torch.equal(out, c["call"]()), f"{c['label']}: two runs differ"
+        report["cases"][f"{c['name']} {c['label']}"] = r = {
+            "nbh_sha256": sha(c["nbh"]), "sha256": sha(out),
+            "call_ms": device_ms(torch, c["call"]),
+            "build_ms": device_ms(torch, partial(T.inverse_neighbors,
+                                                 c["nbh"], c["keys"]))}
+        log(f"  {c['name']} {c['label']:36s} {r}")
+
+    cfg = stage2_config()
+    state = stage2_state(cfg, device)
+    batch = to_device(next(synthetic_local_batches(cfg, seed=0)), device)
+    step_fn = make_train_step(cfg)
+    for _ in range(2):
+        step_fn(state, batch)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    with InverseBuilds() as builds:
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+    launches = kernels.counts()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(torch, lambda: step_fn(state, batch), warmup=0, reps=7)
+    report["train_step"] = {
+        "inverse_builds": len(builds.nbh),
+        "distinct_neighbourhoods": builds.distinct(),
+        "E_launches": launches["weighted_sum_backward"],
+        "F_launches": launches["neighbor_max_backward"],
+        "step_ms": step_ms,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "profile_ms": profile_step(torch, lambda: step_fn(state, batch))}
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"ab_{label}.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    log(json.dumps(report["train_step"]))
+    return 0
+
+
+def ab_compare(paths):
+    """0 if every case's output hash is the same in every file."""
+    runs = [json.load(open(p)) for p in paths]
+    ok = True
+    for key in runs[0]["cases"]:
+        hashes = {(r["cases"][key]["nbh_sha256"], r["cases"][key]["sha256"])
+                  for r in runs}
+        ok &= len(hashes) == 1
+        log(f"  {key:60s} {'equal' if len(hashes) == 1 else 'DIFFER'}")
+    log(json.dumps({"outputs_bit_identical": ok,
+                    "runs": [r["label"] for r in runs]}))
+    return 0 if ok else 1
+
+
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 1:
+        main()
+    else:
+        import argparse
+
+        ap = argparse.ArgumentParser(
+            description="compare two trees of the port (module docstring)")
+        ap.add_argument("--ab-root")
+        ap.add_argument("--label")
+        ap.add_argument("--out", default=os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "chiprun_out"))
+        ap.add_argument("--ab-compare", nargs="+")
+        args = ap.parse_args()
+        if args.ab_compare:
+            sys.exit(ab_compare(args.ab_compare))
+        if not (args.ab_root and args.label):
+            ap.error("--ab-root and --label, or --ab-compare")
+        sys.exit(ab_run(args.ab_root, args.label, args.out))

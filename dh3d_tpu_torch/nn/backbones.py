@@ -36,10 +36,13 @@ class FlexConvDilate(nn.Module):
 
     Returns (xyz, feat, cache).  The cache holds what this call computed of
     the level's geometry — the FPS selection `kp_idx`, the subsampled kNN
-    `knn_indices`, the 3-NN `interp` = (d2, idx) — which are functions of
-    xyz alone, so another stage at the same level passes it back in as
+    `knn`, the 3-NN `interp` = (d2, idx) — which are functions of xyz
+    alone, so another stage at the same level passes it back in as
     `level_cache` and reuses them (`backbones.py:50-63` of the JAX
-    package)."""
+    package).  Each neighbourhood (`knn`, `interp`'s idx) is held as an
+    `ops.NeighborInverse` whose `nbh` is the indices, and every op over it
+    gets that holder as `inverse=`, so that the backward builds each CSR
+    inverse once.  `knn`, when given, is such a holder of the level's kNN."""
 
     def __init__(self, din: int, dilate: int, knn: int,
                  outdims: Sequence[int], concat: bool, add_se: bool,
@@ -55,7 +58,7 @@ class FlexConvDilate(nn.Module):
         if concat:
             self.concat_conv1d = Conv1x1(outdims[-1] + din, outdims[-1])
 
-    def forward(self, xyz, feat, knn_indices=None, level_cache=None):
+    def forward(self, xyz, feat, knn=None, level_cache=None):
         lc = level_cache or {}
         cache = {}
         if self.dilate > 1:
@@ -66,27 +69,31 @@ class FlexConvDilate(nn.Module):
         else:
             points_s, feat_s = xyz, feat
 
-        if knn_indices is None:
-            knn_indices = lc.get("knn_indices")
-        if knn_indices is None:
-            knn_indices, _ = ops.knn_bruteforce(points_s, self.knn)
-            cache["knn_indices"] = knn_indices
+        m = points_s.shape[1]
+        if knn is None:
+            knn = lc.get("knn")
+        if knn is None:
+            knn = ops.NeighborInverse(
+                ops.knn_bruteforce(points_s, self.knn)[0], m)
+            cache["knn"] = knn
 
         x = feat_s
         for i in range(self.n_convs):
-            x = getattr(self, f"flexconv_{i}")(x, points_s, knn_indices)
+            x = getattr(self, f"flexconv_{i}")(x, points_s, knn.nbh, knn)
         if self.se is not None:
-            x_pool, _ = ops.flex_pool(x, knn_indices)
+            x_pool, _ = ops.flex_pool(x, knn.nbh, knn)
             x = self.se(x, x_pool)
 
         if self.dilate > 1:
             interp = lc.get("interp")
             if interp is None:
-                interp = ops.three_nn(xyz, points_s)
+                dist, idx = ops.three_nn(xyz, points_s)
+                interp = (dist, ops.NeighborInverse(idx, m))
                 cache["interp"] = interp
             dist, idx = interp
-            x = ops.three_interpolate(x, idx,
-                                      ops.inverse_distance_weights(dist))
+            x = ops.three_interpolate(x, idx.nbh,
+                                      ops.inverse_distance_weights(dist),
+                                      inverse=idx)
 
         if self.concat:
             x = self.concat_conv1d(torch.cat([x, feat], dim=-1))
@@ -112,9 +119,10 @@ class BackboneLocalDilate(nn.Module):
 
     def forward(self, points, knn_ind):
         nn_8 = knn_ind[..., :8].contiguous()
-        init_f = self.initconv(points, nn_8)
-        init_f, _ = ops.flex_pool(init_f, nn_8)
-        _, x1, _ = self.stage1(points, init_f, knn_indices=nn_8)
+        inv_8 = ops.NeighborInverse(nn_8, points.shape[1])
+        init_f = self.initconv(points, nn_8, inv_8)
+        init_f, _ = ops.flex_pool(init_f, nn_8, inv_8)
+        _, x1, _ = self.stage1(points, init_f, knn=inv_8)
         _, x2, cache = self.stage2(points, self.before_stage2_conv1d(x1))
         feat = self.local_stage1_shortcut(x1) + x2
         if self.final_fc is not None:

@@ -108,9 +108,9 @@ class FlexConv(nn.Module):
         self.position_bias = nn.Parameter(torch.zeros(din, features))
         self.feature_bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, feat, pos, nbh):
+    def forward(self, feat, pos, nbh, inverse=None):
         return ops.flex_conv(feat, pos, nbh, self.position_theta,
-                             self.position_bias) + self.feature_bias
+                             self.position_bias, inverse) + self.feature_bias
 
 
 class FlexConvBN(nn.Module):
@@ -122,8 +122,8 @@ class FlexConvBN(nn.Module):
         self.flexconv = FlexConv(din, features)
         self.norm = BatchNorm(features)
 
-    def forward(self, feat, pos, nbh):
-        return torch.relu(self.norm(self.flexconv(feat, pos, nbh)))
+    def forward(self, feat, pos, nbh, inverse=None):
+        return torch.relu(self.norm(self.flexconv(feat, pos, nbh, inverse)))
 
 
 class ConvPointset(nn.Module):
@@ -135,8 +135,8 @@ class ConvPointset(nn.Module):
                                           fan_out=features)
         self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, feat, nbh):
-        return ops.conv_pointset(feat, nbh, self.theta, self.bias)
+    def forward(self, feat, nbh, inverse=None):
+        return ops.conv_pointset(feat, nbh, self.theta, self.bias, inverse)
 
 
 class ConvPointsetBN(nn.Module):
@@ -147,8 +147,8 @@ class ConvPointsetBN(nn.Module):
         self.conv = ConvPointset(din, features)
         self.norm = BatchNorm(features)
 
-    def forward(self, feat, nbh):
-        return torch.relu(self.norm(self.conv(feat, nbh)))
+    def forward(self, feat, nbh, inverse=None):
+        return torch.relu(self.norm(self.conv(feat, nbh, inverse)))
 
 
 class Conv1x1(nn.Module):

@@ -5,7 +5,8 @@ tensors): `knn` (and `knn_bruteforce`, `knn_bruteforce_pairwise`,
 `three_nn` on it), `farthest_point_sample`, `weighted_sum` (and
 `flex_conv`, `conv_pointset`, `three_interpolate` on it) with its backward
 `weighted_sum_backward`, `neighbor_max` (and `flex_pool`) with its backward
-`neighbor_max_backward`.
+`neighbor_max_backward`; `NeighborInverse` shares the CSR inverse those
+backwards read among the ops over one neighbourhood.
 """
 
 from dh3d_tpu_torch.ops.flex import (
@@ -29,6 +30,7 @@ from dh3d_tpu_torch.ops.knn import (
 )
 from dh3d_tpu_torch.ops.morton import morton_codes, morton_perm
 from dh3d_tpu_torch.ops.neighborhood import (
+    NeighborInverse,
     inverse_neighbors,
     neighbor_max,
     neighbor_max_backward,
@@ -48,7 +50,7 @@ from dh3d_tpu_torch.ops.sampling import (
 )
 
 __all__ = [
-    "conv_pointset", "farthest_point_sample", "flex_conv", "flex_pool",
+    "NeighborInverse", "conv_pointset", "farthest_point_sample", "flex_conv", "flex_pool",
     "flex_weights", "fps_plain", "gather_neighbors", "gather_point",
     "group_point", "inverse_distance_weights", "inverse_neighbors", "knn",
     "knn_bruteforce", "knn_bruteforce_pairwise", "knn_plain",

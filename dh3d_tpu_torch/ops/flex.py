@@ -9,6 +9,9 @@ N(n) (k = 0 is the centre n0) and delta_k = pos[nk] - pos[n0],
     out[n] = M[n] @ W,  M[n] = sum_k [1, delta_k] (outer) feat[nk],
     W = concat([bias[None], theta]).reshape((1 + Dp) * Din, Dout),
 so M is kernel C with P = 1 + Dp weights [1, delta] and a p-major output.
+
+Every op takes an optional `inverse`, the `NeighborInverse` of its nbh,
+which its backward reads (`ops/neighborhood.py`).
 """
 
 from __future__ import annotations
@@ -32,26 +35,26 @@ def flex_weights(positions: torch.Tensor, nbh: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.ones_like(delta[..., :1]), delta], dim=-1)
 
 
-def flex_conv(features, positions, nbh, theta, bias):
+def flex_conv(features, positions, nbh, theta, bias, inverse=None):
     """Flex convolution (`flex_conv_kernel.cc:25-167`).
 
     features [B, N, Din], positions [B, N, Dp], nbh [B, N, K] int64 with
     the centre at k = 0, theta [Dp, Din, Dout], bias [Din, Dout]
     -> [B, N, Dout]."""
     Dp, Din, Dout = theta.shape
-    m = weighted_sum(features, nbh, flex_weights(positions, nbh))
+    m = weighted_sum(features, nbh, flex_weights(positions, nbh), inverse)
     w = torch.cat([bias[None], theta], dim=0).reshape((1 + Dp) * Din, Dout)
     return m @ w
 
 
-def flex_pool(features, nbh):
+def flex_pool(features, nbh, inverse=None):
     """Max-pool over each neighbourhood (`flex_pool_kernel.cc:23-97`):
     features [B, M, C], nbh [B, N, K] -> (out [B, N, C], argmax [B, N, C]
     int64 global point ids, the lowest k on ties)."""
-    return neighbor_max(features, nbh)
+    return neighbor_max(features, nbh, inverse)
 
 
-def conv_pointset(features, nbh, theta, bias):
+def conv_pointset(features, nbh, theta, bias, inverse=None):
     """1x1 conv on neighbourhood differences (`conv_pointset_kernel.cc:49-64`):
     out[n] = sum_k (feat[nk] - feat[n0]) @ theta + bias, the bias once.
 
@@ -63,4 +66,4 @@ def conv_pointset(features, nbh, theta, bias):
     w = torch.ones(*nbh.shape, 1, dtype=features.dtype,
                    device=features.device)
     w[:, :, 0] = 1 - K
-    return weighted_sum(features, nbh, w) @ theta + bias
+    return weighted_sum(features, nbh, w, inverse) @ theta + bias

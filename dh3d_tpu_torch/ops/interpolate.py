@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from dh3d_tpu_torch.ops.knn import knn
-from dh3d_tpu_torch.ops.neighborhood import weighted_sum
+from dh3d_tpu_torch.ops.neighborhood import NeighborInverse, weighted_sum
 
 
 def three_nn(xyz1: torch.Tensor, xyz2: torch.Tensor):
@@ -22,10 +22,12 @@ def three_nn(xyz1: torch.Tensor, xyz2: torch.Tensor):
 
 
 def three_interpolate(points: torch.Tensor, idx: torch.Tensor,
-                      weight: torch.Tensor) -> torch.Tensor:
+                      weight: torch.Tensor,
+                      inverse: NeighborInverse | None = None) -> torch.Tensor:
     """points [B, M, C], idx/weight [B, N, 3] -> [B, N, C]:
-    out[n] = sum_j weight[n, j] * points[idx[n, j]]."""
-    return weighted_sum(points, idx, weight[..., None].contiguous())
+    out[n] = sum_j weight[n, j] * points[idx[n, j]].  `inverse`, the
+    `NeighborInverse(idx, M)`, is what the backward reads."""
+    return weighted_sum(points, idx, weight[..., None].contiguous(), inverse)
 
 
 def inverse_distance_weights(dist: torch.Tensor,

@@ -11,7 +11,9 @@ shared memory.  kNN (kernels A and G) and FPS must equal their plain
 versions exactly (both build d2 from the same rounded terms);
 neighbour max and its slot exactly; weighted sums and both backwards to
 1e-5 relative (FMA accumulation in the kernels, batched matmuls and
-atomic scatters in the plain versions).  The
+atomic scatters in the plain versions).  The backwards also run at the
+train step's own shapes, where they must give the same bits with the CSR
+inverse shared and built in the call, and on a second run.  The
 train step on the card is held to the CPU's as `chip_smoke.py` phase 7
 holds it (see there).
 """
@@ -271,3 +273,98 @@ def test_train_step_on_card_matches_cpu(device):
         scale = top if name in zero else g.abs().max().item()
         err = (g_gpu[name] - g).abs().max().item()
         assert err <= 1e-3 * scale, (name, err, scale)
+
+
+# E and F at every shape of the detection_config train step ([20, 8192]
+# and its [20, 1024] level): (P, C, keys) for E, C for F
+TRAIN_E = [(4, 32, "N"), (4, 64, "N"), (4, 64, "M"), (4, 128, "M"),
+           (1, 128, "3nn")]
+TRAIN_F = [(32, "N"), (64, "N"), (128, "M")]
+
+
+@pytest.fixture(scope="module")
+def train_level(device_module):
+    """The three neighbourhoods of a train step on [20, 8192] clouds: kNN
+    k=8 at 8192 and at 1024, and the 3-NN map 8192 -> 1024."""
+    g = torch.Generator().manual_seed(11)
+    pts = (torch.randn(20, 8192, 3, generator=g) * 30).to(device_module)
+    sub = pts[:, ::8].contiguous()
+    nbh, _ = T.knn(pts, pts, 8)
+    nbh1, _ = T.knn(sub, sub, 8)
+    d2, idx3 = T.three_nn(pts, sub)
+    return {"N": (nbh, T.flex_weights(pts, nbh), 8192),
+            "M": (nbh1, T.flex_weights(sub, nbh1), 1024),
+            "3nn": (idx3, T.inverse_distance_weights(d2)[..., None]
+                    .contiguous(), 1024)}
+
+
+@pytest.fixture(scope="module")
+def device_module():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("P,C,level", TRAIN_E)
+def test_weighted_sum_backward_at_train_shapes(train_level, P, C, level):
+    """Kernel E with the inverse shared and built in the call: the same
+    bits both ways and on a second run; within 1e-5 of the plain version."""
+    idx, w, keys = train_level[level]
+    g = torch.Generator().manual_seed(P * 1000 + C)
+    dm = torch.randn(*idx.shape[:2], P * C, generator=g).to(idx.device)
+    inv = T.NeighborInverse(idx, keys)
+    shared = _counted(kernels.WEIGHTED_SUM_BWD, T.weighted_sum_backward, dm,
+                      idx, w, keys, inv)
+    assert torch.equal(shared, T.weighted_sum_backward(dm, idx, w, keys, inv))
+    assert torch.equal(shared, T.weighted_sum_backward(dm, idx, w, keys))
+    _close(shared, T.weighted_sum_backward_plain(dm, idx, w, keys))
+
+
+@pytest.mark.parametrize("C,level", TRAIN_F)
+def test_neighbor_max_backward_at_train_shapes(train_level, C, level):
+    idx, _, keys = train_level[level]
+    g = torch.Generator().manual_seed(C)
+    feat = torch.randn(idx.shape[0], keys, C, generator=g).to(idx.device)
+    slot = T.neighbor_max_with_slot(feat, idx)[2]
+    dval = torch.randn(*idx.shape[:2], C, generator=g).to(idx.device)
+    inv = T.NeighborInverse(idx, keys)
+    shared = _counted(kernels.NEIGHBOR_MAX_BWD, T.neighbor_max_backward, dval,
+                      idx, slot, keys, inv)
+    assert torch.equal(shared,
+                       T.neighbor_max_backward(dval, idx, slot, keys, inv))
+    assert torch.equal(shared, T.neighbor_max_backward(dval, idx, slot, keys))
+    _close(shared, T.neighbor_max_backward_plain(dval, idx, slot, keys))
+
+
+def test_inverse_on_card_equals_cpu(train_level):
+    """The build is integer bookkeeping: the same on the card and the CPU."""
+    for idx, _, keys in train_level.values():
+        got = T.inverse_neighbors(idx, keys)
+        ref = T.inverse_neighbors(idx.cpu(), keys)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, ref))
+
+
+def test_train_step_builds_each_inverse_once(device, monkeypatch):
+    """One detection_config step at [2, 8192]: kernel E runs 5 times and F
+    3 times over 3 neighbourhoods, whose inverses are built once each."""
+    from dh3d_tpu_torch import config as cfglib
+    from dh3d_tpu_torch.ops import neighborhood
+    from dh3d_tpu_torch.train import (forward_loss, init_state,
+                                      synthetic_batches, to_device)
+
+    built = []
+    real = neighborhood.inverse_neighbors
+    monkeypatch.setattr(neighborhood, "inverse_neighbors",
+                        lambda nbh, m: built.append(nbh) or real(nbh, m))
+    cfg = cfglib.get_config("detection_config")
+    cfg.num_points, cfg.batch_size = 8192, 1
+    batch = next(synthetic_batches(cfg, 0))
+    state = init_state(cfg, 0, device)
+    state.model.train()
+    kernels.reset_counts()
+    total, _, _ = forward_loss(state.model, cfg, to_device(batch, device))
+    total.backward()
+    torch.cuda.synchronize()
+    assert kernels.WEIGHTED_SUM_BWD.launches == 5
+    assert kernels.NEIGHBOR_MAX_BWD.launches == 3
+    assert len(built) == 3 and len({id(t) for t in built}) == 3

@@ -29,7 +29,8 @@ from dh3d_tpu.ops.pallas.banded_pallas import (
     oob_plan,
 )
 from dh3d_tpu_torch import ops as T
-from dh3d_tpu_torch.ops.neighborhood import NeighborMax, WeightedSum
+from dh3d_tpu_torch.ops.neighborhood import (NeighborMax, WeightedSum,
+                                             unpack_entries)
 
 B, N, K, C = 2, 512, 8, 32
 TILE, WIN, WE = 128, 256, 512
@@ -348,8 +349,11 @@ def test_inverse_neighbors_lists_every_occurrence(rng):
     nbh = rng.randint(0, 40, (2, 30, 4))
     rowptr, ent = T.inverse_neighbors(_t(nbh), 50)
     assert rowptr.shape == (2, 51) and ent.shape == (2, 120)
+    assert rowptr.dtype == ent.dtype == torch.int32
     for b in range(2):
         for j in range(50):
             got = ent[b, rowptr[b, j]:rowptr[b, j + 1]].numpy()
+            n, k = unpack_entries(got)
+            flat = n * 4 + k
             np.testing.assert_array_equal(
-                got, np.flatnonzero(nbh[b].reshape(-1) == j))
+                flat, np.flatnonzero(nbh[b].reshape(-1) == j))
