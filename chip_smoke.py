@@ -22,11 +22,18 @@ result line:
      handed in (as on the path: `ms`, bounded by the inverse's bytes) and
      built in the call (`ms_fresh_inverse`, bounded by nbh's), and must
      give the same bits both ways and on a second run; the inverse's build
-     is timed alone.
+     is timed alone.  Kernels A and B run at every shape of the path
+     (`knn_fps_cases`: the forward's, the train step's and the
+     extraction's), each with the plan it took; beside A's bound its
+     instruction floor (the 7 instructions every pair issues in its x-y
+     test, over 128 lanes of every SM at the SM clock `nvidia-smi` reads
+     under load), beside B's its chain floor (the fastest time an iteration
+     of any plan at [20,1024]->1024, times m - 1); kernel G at the
+     detection loss's k=16 shape as a yardstick beside A.
   4. the main-path forward (`dh3d_tpu_torch.entry.entry`) at [20, 8192]:
      every forward kernel's launch count over that one forward must be > 0;
      the outputs must be finite, of the model's shapes, with unit-norm
-     descriptors; clouds/s.
+     descriptors; clouds/s and a `torch.profiler` split.
   5. the same forward at [2, 8192] on the card and on the CPU (plain
      versions), same weights and clouds: indices equal, descriptors within
      the tolerances below.
@@ -72,14 +79,24 @@ change, change, parent, in one call):
 The first imports `dh3d_tpu_torch` from DIR (a checkout, or a tree unpacked
 there with `git archive`; it needs `ops.inverse_neighbors` and the kernel
 launch counts) and writes OUT/ab_NAME.json (OUT defaults to `chiprun_out`
-beside this script): for every case of `backward_cases`, the output's
-sha256 and the device time of the op called without an inverse (the
-tree's own route: it builds the inverse in the call, as the parent of the
-shared inverse did on its path) and of the build alone; over one
-full-width train step, the inverses built, the launches of E and F, the
-profiler's device time of E, F and the builds, the step time (median of 7)
-and the peak memory.  The second checks that every case's hash agrees
-across the files.
+beside this script): for every case of `knn_fps_cases` (the tree's own
+plans) and of `backward_cases`, the output's sha256 and its device time
+(E and F called without an inverse: the tree's own route, which builds the
+inverse in the call, as the parent of the shared inverse did on its path;
+and the build alone); one full-width forward and one batch-1 extraction
+forward at N=16384 (`models/demo_stage2`, as phase 9 runs it): output
+hashes, median of 10 with CUDA events, and the profiler's device time of
+one call by kernel class, so the device's idle share; over one full-width
+train step, the inverses built, the launches of E and F, the profiler's
+device time of E, F and the builds, the step time (median of 7) and the
+peak memory.  The second checks that every case's hash and both forwards'
+agree across the files and prints the times side by side.
+
+    python3 chip_smoke.py --sweep [--out OUT]
+
+times every plan kernels A and B take at each shape of `knn_fps_cases`,
+each output checked equal to the plain version, into OUT/sweep.json: the
+measurements `knn_plan` and `fps_plan` were chosen from.
 """
 
 from __future__ import annotations
@@ -147,6 +164,15 @@ SOURCES = {
 MEMORY_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 SLEEP_CYCLES = 20_000_000  # ~10 ms of device time ahead of queued calls
+# Kernel A's instruction floor: what every query-key pair issues in the x-y
+# test that most pairs end at (csrc/knn.cu, no FMA): its lane of the key's
+# LDS.128, 2 FADD (dx, dy), 2 FMUL, 1 FADD and 1 FSETP.  The step's loop
+# control, and the z terms and insertions of the pairs that pass the test,
+# come on top, so the floor is a lower bound.
+KNN_FLOOR_INSTRUCTIONS_PER_PAIR = 7
+# Kernel B's plans timed at [20,1024]->1024 for its chain floor
+CHAIN_FLOOR_PLANS = ((1, 128), (1, 256), (1, 1024), (2, 128), (4, 128),
+                     (8, 128))
 # the forward (phase 4) runs A-D; the train step (phase 6) A-F; the local
 # extraction with NMS (phase 8) A-D and G
 FORWARD_KERNELS = ("knn", "fps", "weighted_sum", "neighbor_max")
@@ -309,6 +335,87 @@ def backward_cases(torch, T, device):
     return cases
 
 
+def plan_of(T, name, *shape):
+    """The tree's own plan for a case: `knn_plan` / `fps_plan` where the
+    tree has them (None on a tree from before the plans)."""
+    fn = getattr(T, "knn_plan" if name == "knn" else "fps_plan", None)
+    if fn is None:
+        return None
+    from dh3d_tpu_torch import kernels
+
+    plan = fn(*shape, kernels.sm_count(0))
+    return list(plan) if isinstance(plan, tuple) else plan
+
+
+def knn_fps_cases(torch, T, device):
+    """Kernels A and B at every shape of the path, on seeded inputs that
+    are the same on every tree of the port.  One dict a case: `name` (the
+    kernel), `label`; `call`, the op as the path calls it (the tree's own
+    plan, `plan`: A's key slabs, B's (blocks a cloud, threads a block));
+    `plain`; `forced(plan)`, the op with a given plan (a tree with plans);
+    `plans`, every plan to sweep; `inputs` (for the bound and the hash);
+    `ops`, f32 operations; A: `pairs`; B: `m`.  B at [20,1024]->1024 is
+    almost all barrier and reduction: the fastest of its plans gives the
+    chain floor (`chain_plans`)."""
+    pts, sub, _, _, _ = train_geometry(torch, T, device)
+    B, N = pts.shape[:2]
+    M = sub.shape[1]
+    lidar = torch.from_numpy(eval_cloud(0, 16384)[None]).to(device)
+    perm, _ = T.morton_perm(lidar)  # the extraction forward's order
+    lidar_m = torch.gather(lidar, 1, perm[..., None].expand(-1, -1, 3))
+    lidar_m = lidar_m.contiguous()
+    dso = torch.from_numpy(eval_cloud(7, 9000)[None]).to(device)
+    big = torch.from_numpy(lidar_like_scan(8, n_points=40000)[None]).to(device)
+    P2, KP = B // 2, 512
+    kp = pts[:P2, :KP].contiguous() + 0.25  # the detection loss's keypoints
+    cases = []
+    for label, q, keys, k in (
+            (f"self k=8 [{B},{N}]", pts, pts, 8),
+            (f"self k=8 [{B},{M}]", sub, sub, 8),
+            (f"cross k=3 [{B},{N}]->[{B},{M}]", pts, sub, 3),
+            (f"cross k=16 [{P2},{KP}]->[{P2},{N}]", kp,
+             pts[:P2].contiguous(), 16),
+            ("self k=8 [1,16384] (extraction)", lidar_m, lidar_m, 8)):
+        b, nq, nk = q.shape[0], q.shape[1], keys.shape[1]
+        cases.append(dict(
+            name="knn", label=label, inputs=(q, keys), pairs=b * nq * nk,
+            ops=8 * b * nq * nk, call=partial(T.knn, q, keys, k),
+            plain=partial(T.knn_plain, q, keys, k),
+            plan=plan_of(T, "knn", b, nq, nk, k),
+            forced=lambda s, q=q, keys=keys, k=k: T.knn(q, keys, k,
+                                                         slabs=s),
+            plans=[s for s in (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)
+                   if s <= nk]))
+    for label, p, m in ((f"[{B},{N}]->{M}", pts, M),
+                        (f"[{B},{M}]->{M} (chain floor)", sub, M),
+                        ("[1,16384]->2048", lidar, 2048),
+                        ("[1,9000]->1125", dso, 1125),
+                        ("[1,40000]->5000", big, 5000)):
+        b, n = p.shape[:2]
+        cases.append(dict(
+            name="fps", label=label, inputs=(p,), m=m, ops=9 * b * n * m,
+            call=partial(T.farthest_point_sample, p, m),
+            plain=partial(T.fps_plain, p, m), plan=plan_of(T, "fps", b, n),
+            forced=lambda plan, p=p, m=m: T.farthest_point_sample(
+                p, m, plan=plan),
+            plans=[(c, t) for c in (1, 2, 3, 4, 6, 8)
+                   for t in (128, 256, 512, 1024)],
+            chain_plans=CHAIN_FLOOR_PLANS if "chain" in label else ()))
+    return cases
+
+
+def sm_clock_mhz(torch, fn, ms) -> float:
+    """The SM clock `nvidia-smi` reports while calls of `fn` (`ms` device
+    ms each) keep the card busy for about half a second."""
+    for _ in range(max(1, min(5000, int(500 / max(ms, 1e-3))))):
+        fn()
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, check=True, timeout=60)
+    torch.cuda.synchronize()
+    return float(r.stdout.strip().splitlines()[0])
+
+
 def kernel_phase(torch, T, device):
     """Phase 3: each kernel against its plain version at main-path shapes.
     Returns {kernel name: [case dict, ...]}, the main-path case first."""
@@ -322,18 +429,19 @@ def kernel_phase(torch, T, device):
         return list(out) if isinstance(out, (tuple, list)) else [out]
 
     def case(name, shape, kernel_fn, plain_fn, compare, inputs, ops,
-             library_fn=None, **extra):
+             library_fn=None, info=None, **extra):
         """Compare, time and bound one kernel case.  `inputs`: the tensors
         the function reads (its outputs are counted from the kernel's);
         `ops`: its f32 operations; `library_fn`: one PyTorch call or
         library route for the same function, checked like the plain
-        version; `extra`: more timed routes, name -> fn."""
+        version; `info`: more keys of the row (a plan); `extra`: more
+        timed routes, name -> fn."""
         out, ref = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         err = compare(out, ref)
         row = {"shape": shape, "max_abs_err": err,
                "ms": device_ms(torch, kernel_fn),
-               "plain_ms": device_ms(torch, plain_fn)}
+               "plain_ms": device_ms(torch, plain_fn), **(info or {})}
         row["bound_ms"], row["bound_by"] = bound(
             nbytes(*inputs, *flat(out)), ops)
         row["library_ms"] = None
@@ -349,7 +457,9 @@ def kernel_phase(torch, T, device):
             f"({row['bound_by']})  library "
             f"{'-' if lib is None else f'{lib:.3f}'}  max_abs_err {err:.3g}"
             + "".join(f"  {k} {v:.3f}" for k, v in row.items()
-                      if k in extra))
+                      if k in extra)
+            + "".join(f"  {k} {v}" for k, v in (info or {}).items()))
+        return row
 
     def same_knn(out, ref):
         assert torch.equal(out[0], ref[0]), "kNN indices differ"
@@ -377,18 +487,42 @@ def kernel_phase(torch, T, device):
              lambda: T.knn_plain(q, keys, k), same_knn, (q, keys),
              8 * q.shape[0] * q.shape[1] * keys.shape[1])
 
-    def fps_case(shape, p, m):
-        case("fps", shape, lambda: T.farthest_point_sample(p, m),
-             lambda: T.fps_plain(p, m), same, (p,),
-             9 * p.shape[0] * p.shape[1] * m)
-
-    # A: self-kNN at both levels, and the 3-NN upsample lookup
-    knn_case("knn", f"self k=8 [{B},{N}]", pts, pts, K)
-    knn_case("knn", f"self k=8 [{B},{M}]", sub, sub, K)
-    knn_case("knn", f"cross k=3 [{B},{N}]->[{B},{M}]", pts, sub, 3)
-
-    # B: FPS 8192 -> 1024
-    fps_case(f"[{B},{N}]->{M}", pts, M)
+    # A and B at every shape of the path, with the plan each took; A's
+    # instruction floor (the instructions every pair issues, over 128 lanes
+    # of every SM at the SM clock read just after), B's chain floor (the
+    # fastest time an iteration of any plan at [20,1024]->1024, times m - 1)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rows = []
+    for c in knn_fps_cases(torch, T, device):
+        rows.append((c, case(c["name"], c["label"], c["call"], c["plain"],
+                             same_knn if c["name"] == "knn" else same,
+                             c["inputs"], c["ops"], info={"plan": c["plan"]})))
+    chain = next((c, r) for c, r in rows if c.get("chain_plans"))
+    chain[1]["plans_ms"] = {}
+    for plan in chain[0]["chain_plans"]:
+        fn = partial(chain[0]["forced"], plan)
+        assert torch.equal(fn(), chain[0]["plain"]()), plan
+        chain[1]["plans_ms"][str(list(plan))] = device_ms(torch, fn)
+    best = min(chain[1]["plans_ms"], key=chain[1]["plans_ms"].get)
+    chain_us = chain[1]["plans_ms"][best] * 1e3 / (chain[0]["m"] - 1)
+    log(f"  fps {chain[0]['label']:42s} by plan {chain[1]['plans_ms']}: the "
+        f"chain floor is {best}'s {chain_us:.3f} us an iteration")
+    for c, row in rows:
+        if c["name"] == "knn":
+            row["sm_clock_mhz"] = mhz = sm_clock_mhz(torch, c["call"],
+                                                     row["ms"])
+            row["instruction_floor_ms"] = (
+                KNN_FLOOR_INSTRUCTIONS_PER_PAIR * c["pairs"] / (sms * 128)
+                / (mhz * 1e6) * 1e3)
+            log(f"  knn {c['label']:42s} instruction floor "
+                f"{row['instruction_floor_ms']:.3f} ms at {mhz:.0f} MHz")
+        else:
+            row["us_per_iteration"] = row["ms"] * 1e3 / max(1, c["m"] - 1)
+            row["chain_floor_ms"] = chain_us * (c["m"] - 1) / 1e3
+            row["chain_floor_plan"] = best
+            log(f"  fps {c['label']:42s} chain floor "
+                f"{row['chain_floor_ms']:.3f} ms ({chain_us:.3f} us an "
+                f"iteration); {row['us_per_iteration']:.3f} us an iteration")
 
     # C: the flex-conv moments, initconv's difference sum, the upsample,
     # and once on random (non-banded) indices; library: one sparse product
@@ -422,12 +556,6 @@ def kernel_phase(torch, T, device):
          lambda: T.neighbor_max_with_slot(f64, nbh),
          lambda: T.neighbor_max_plain(f64, nbh), same_max, (f64, nbh),
          nbh.numel() * 64)
-
-    # A at k=16 across clouds: the detection loss's keypoint queries
-    P2, KP = B // 2, 512
-    kp = pts[:P2, :KP].contiguous() + 0.25
-    knn_case("knn", f"cross k=16 [{P2},{KP}]->[{P2},{N}]", kp,
-             pts[:P2].contiguous(), 16)
 
     # E and F at every shape of the train step: the inverse handed in (as
     # on the path: `ms`, bounded by the bytes of the inverse it reads) and
@@ -466,12 +594,25 @@ def kernel_phase(torch, T, device):
     small = clouds([5, 6], 3000)
     for k in (33, 128):
         knn_case("knn_topk", f"self k={k} [2,3000]", small, small, k)
-    dso = clouds([7], 9000)
-    big = torch.from_numpy(lidar_like_scan(8, n_points=40000)[None]).to(device)
-    for label, pts_, m in (("[1,16384]->2048", lidar, 2048),
-                           ("[1,9000]->1125", dso, 1125),
-                           ("[1,40000]->5000", big, 5000)):
-        fps_case(label, pts_, m)
+
+    # G at the detection loss's k=16 shape, a yardstick beside A (G takes
+    # any k <= 128, a warp a query; the path never routes k=16 to it)
+    from dh3d_tpu_torch import kernels
+
+    P2, KP = B // 2, 512
+    kp = pts[:P2, :KP].contiguous() + 0.25
+    keys16 = pts[:P2].contiguous()
+
+    def topk16():
+        idx = torch.empty(P2, KP, 16, dtype=torch.int64, device=device)
+        d2 = torch.empty(P2, KP, 16, device=device)
+        kernels.KNN_TOPK.launch(device, kp.data_ptr(), keys16.data_ptr(),
+                                idx.data_ptr(), d2.data_ptr(), P2, KP, N, 16)
+        return idx, d2
+
+    case("knn_topk", f"cross k=16 [{P2},{KP}]->[{P2},{N}] (yardstick)",
+         topk16, lambda: T.knn_plain(kp, keys16, 16), same_knn, (kp, keys16),
+         8 * P2 * KP * N)
     return cases
 
 
@@ -597,8 +738,8 @@ def profile_step(torch, step):
         step()
         torch.cuda.synchronize()
     classes = (
-        ("port kernels A-F", ("knn_kernel", "fps_kernel", "weighted_sum",
-                              "neighbor_max")),
+        ("port kernels A-F", ("knn_kernel", "knn_merge", "fps_kernel",
+                              "weighted_sum", "neighbor_max")),
         ("GEMMs", ("gemm", "cutlass", "xmma", "sm90_", "ampere_", "cublas")),
         ("optimizer", ("adam", "multi_tensor", "foreach")),
         ("sort, scan, gather, scatter", ("sort", "radix", "scan", "index",
@@ -1033,10 +1174,17 @@ def main():
     log(f"  forward: {fwd_ms:.2f} ms median (CUDA events), "
         f"{B / (fwd_ms / 1e3):.1f} clouds/s; host clock {B / host_s:.1f} "
         f"clouds/s over {iters} forwards")
+    try:
+        fwd_split = profile_step(torch, lambda: fn(points))
+    except Exception as e:  # the split is a report, not a check
+        fwd_split = {"not measured": repr(e)}
+    fwd_split.pop("E + F + inverse builds", None)
+    log(f"  profile of one forward (device ms): {fwd_split}")
     log(json.dumps({"forward": {
         "shape": [B, N, 3], "ms": fwd_ms, "clouds_per_s": B / (fwd_ms / 1e3),
         "host_clouds_per_s": B / host_s, "peak_mem_gb":
-            torch.cuda.max_memory_allocated() / 1e9}}))
+            torch.cuda.max_memory_allocated() / 1e9,
+        "profile_ms": fwd_split}}))
     del outs
 
     log("phase 5: card vs CPU forward [2, 8192]")
@@ -1127,6 +1275,18 @@ def ab_run(root, label, out_dir):
         return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
 
     report = {"label": label, "root": root, "card": card_line(), "cases": {}}
+    for c in knn_fps_cases(torch, T, device):
+        out = c["call"]()
+        again = c["call"]()
+        for a, b in zip(*(o if isinstance(o, tuple) else (o,)
+                          for o in (out, again))):
+            assert torch.equal(a, b), f"{c['label']}: two runs differ"
+        outs = out if isinstance(out, tuple) else (out,)
+        report["cases"][f"{c['name']} {c['label']}"] = r = {
+            "input_sha256": sha(torch.cat([t.flatten() for t in c["inputs"]])),
+            "sha256": "/".join(sha(t) for t in outs),
+            "call_ms": device_ms(torch, c["call"]), "plan": c["plan"]}
+        log(f"  {c['name']} {c['label']:42s} {r}")
     for c in backward_cases(torch, T, device):
         out = c["call"]()
         assert torch.equal(out, c["call"]()), f"{c['label']}: two runs differ"
@@ -1136,6 +1296,28 @@ def ab_run(root, label, out_dir):
             "build_ms": device_ms(torch, partial(T.inverse_neighbors,
                                                  c["nbh"], c["keys"]))}
         log(f"  {c['name']} {c['label']:36s} {r}")
+
+    # one full-width forward (phase 4's) and one batch-1 extraction forward
+    # (phase 9's): output hashes, median of 10, device time by class
+    from dh3d_tpu_torch.entry import entry
+    from dh3d_tpu_torch.eval import make_forward
+    from dh3d_tpu_torch.train import resolve_model
+
+    fn, (points,) = entry(device, batch=20)
+    report["forward"] = forward_report(torch, fn, points, sha, 20)
+    del fn, points
+    cfg, model = resolve_model("models/demo_stage2")
+    cfg.num_points, cfg.sampled_kpnum, cfg.input_R = 16384, -1, False
+    cloud = torch.from_numpy(eval_cloud(0, 16384)[None]).to(device)
+    report["extract_forward"] = forward_report(
+        torch, make_forward(cfg, model.to(device)), cloud, sha, 1)
+    del cfg, model, cloud
+    for key, name in (("forward", "forward [20, 8192]"),
+                      ("extract_forward", "extraction forward [1, 16384]")):
+        r = report[key]
+        log(f"  {name}: {r['ms']:.3f} ms median of 10, "
+            f"{r['clouds_per_s']:.1f} clouds/s; device {r['device_ms']:.3f} "
+            f"ms, idle share {r['idle_share']:.3f}")
 
     cfg = stage2_config()
     state = stage2_state(cfg, device)
@@ -1166,15 +1348,91 @@ def ab_run(root, label, out_dir):
     return 0
 
 
+def forward_report(torch, fn, points, sha, clouds):
+    """A forward's output hashes, its time (median of 10, CUDA events: what
+    the host's launches leave the device waiting included), the
+    profiler's device time of one call by kernel class and the share of
+    the median the device is idle."""
+    outs = fn(points)
+    r = {"sha256": {k: sha(v) for k, v in sorted(outs.items())},
+         "ms": cuda_ms(torch, lambda: fn(points), warmup=2, reps=10)}
+    del outs
+    r["clouds_per_s"] = clouds / (r["ms"] / 1e3)
+    split = profile_step(torch, lambda: fn(points))
+    split.pop("E + F + inverse builds", None)
+    r["profile_ms"] = split
+    r["device_ms"] = sum(split.values())
+    r["idle_share"] = max(0.0, 1 - r["device_ms"] / r["ms"])
+    return r
+
+
+def sweep_run(out_dir):
+    """Every plan kernels A and B take at each shape of `knn_fps_cases`:
+    output checked equal to the plain version, device time; written to
+    OUT/sweep.json."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py: torch.cuda.is_available() is False")
+    from dh3d_tpu_torch import kernels
+    from dh3d_tpu_torch import ops as T
+
+    device = torch.device("cuda", 0)
+    kernels.library()
+    report = {"card": card_line(), "cases": []}
+    for c in knn_fps_cases(torch, T, device):
+        ref = c["plain"]()
+        row = {"name": c["name"], "label": c["label"], "plan": c["plan"],
+               "ms": {}}
+        for plan in c["plans"]:
+            fn = partial(c["forced"], plan)
+            try:
+                out = fn()
+            except ValueError:  # a plan whose blocks cannot hold the cloud
+                continue
+            for a, b in zip(*(o if isinstance(o, tuple) else (o,)
+                              for o in (out, ref))):
+                assert torch.equal(a, b), (c["label"], plan)
+            key = str(plan if isinstance(plan, int) else list(plan))
+            row["ms"][key] = ms = device_ms(torch, fn)
+            log(f"  {c['name']} {c['label']:42s} plan {key} {ms:.4f} ms")
+        best = min(row["ms"], key=row["ms"].get)
+        log(f"  {c['name']} {c['label']:42s} best {best} "
+            f"{row['ms'][best]:.4f} ms; the plan's {c['plan']} "
+            f"{row['ms'].get(str(c['plan']))}")
+        report["cases"].append(row)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "sweep.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    log(card_line())
+    return 0
+
+
 def ab_compare(paths):
-    """0 if every case's output hash is the same in every file."""
+    """0 if every case's output hash, and both forwards', is the same in
+    every file."""
     runs = [json.load(open(p)) for p in paths]
     ok = True
     for key in runs[0]["cases"]:
-        hashes = {(r["cases"][key]["nbh_sha256"], r["cases"][key]["sha256"])
-                  for r in runs}
+        hashes = {(r["cases"][key].get("nbh_sha256"),
+                   r["cases"][key].get("input_sha256"),
+                   r["cases"][key]["sha256"]) for r in runs}
         ok &= len(hashes) == 1
-        log(f"  {key:60s} {'equal' if len(hashes) == 1 else 'DIFFER'}")
+        log(f"  {key:60s} {'equal' if len(hashes) == 1 else 'DIFFER'}"
+            f"  ms " + " / ".join(f"{r['cases'][key]['call_ms']:.4f}"
+                                  for r in runs))
+    for fwd in ("forward", "extract_forward"):
+        for out in runs[0][fwd]["sha256"]:
+            same = len({r[fwd]["sha256"][out] for r in runs}) == 1
+            ok &= same
+            log(f"  {fwd} {out:44s} {'equal' if same else 'DIFFER'}")
+        log(f"  {fwd} ms " + " / ".join(f"{r[fwd]['ms']:.3f}" for r in runs)
+            + "; device ms " + " / ".join(f"{r[fwd]['device_ms']:.3f}"
+                                          for r in runs)
+            + "; idle share " + " / ".join(f"{r[fwd]['idle_share']:.3f}"
+                                           for r in runs))
+    log("  train step ms " + " / ".join(f"{r['train_step']['step_ms']:.3f}"
+                                        for r in runs))
     log(json.dumps({"outputs_bit_identical": ok,
                     "runs": [r["label"] for r in runs]}))
     return 0 if ok else 1
@@ -1193,9 +1451,12 @@ if __name__ == "__main__":
         ap.add_argument("--out", default=os.path.join(
             os.path.dirname(os.path.abspath(__file__)), "chiprun_out"))
         ap.add_argument("--ab-compare", nargs="+")
+        ap.add_argument("--sweep", action="store_true")
         args = ap.parse_args()
         if args.ab_compare:
             sys.exit(ab_compare(args.ab_compare))
+        if args.sweep:
+            sys.exit(sweep_run(args.out))
         if not (args.ab_root and args.label):
             ap.error("--ab-root and --label, or --ab-compare")
         sys.exit(ab_run(args.ab_root, args.label, args.out))

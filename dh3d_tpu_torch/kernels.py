@@ -10,7 +10,10 @@ reused.  It lands in `build/kernels/` at the root of the checkout.
 Every kernel has one `Kernel` object here.  Its `launch` passes device
 pointers and sizes to the C entry point together with PyTorch's current
 stream, raises if the entry point returns a CUDA error, and only then adds
-one to the kernel's `launches` count.  The op wrappers in `ops/` call
+one to the kernel's `launches` count.  The C entry points alone check
+their arguments (sizes and launch plans): one that refuses them returns
+cudaErrorInvalidValue, which `launch` raises as ValueError.  The op
+wrappers in `ops/` call
 `launch` only for CUDA tensors; nothing here runs for CPU tensors, and
 nothing is compiled or loaded when the module is imported.
 """
@@ -18,6 +21,7 @@ nothing is compiled or loaded when the module is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -38,6 +42,7 @@ _lock = threading.Lock()
 _library = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+CUDA_ERROR_INVALID_VALUE = 1  # cudaErrorInvalidValue
 
 
 def find_nvcc() -> str:
@@ -117,7 +122,7 @@ def library() -> ctypes.CDLL:
             lib = ctypes.CDLL(path)
             lib.dh3d_error_string.argtypes = [_I]
             lib.dh3d_error_string.restype = ctypes.c_char_p
-            lib.dh3d_fps_max_points.argtypes = [_I, _I]
+            lib.dh3d_fps_max_points.argtypes = [_I, _I, _I]
             lib.dh3d_fps_max_points.restype = _I
             for k in KERNELS:
                 fn = getattr(lib, k.symbol)
@@ -137,12 +142,19 @@ class Kernel:
         self.launches = 0
 
     def launch(self, device: torch.device, *args) -> None:
-        """Launch on `device`'s current stream; raise on a CUDA error."""
+        """Launch on `device`'s current stream.  Raises ValueError when the
+        entry point refuses the arguments, RuntimeError on another CUDA
+        error."""
         lib = library()
         fn = getattr(lib, self.symbol)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             err = fn(*args, stream)
+        if err == CUDA_ERROR_INVALID_VALUE:
+            sizes = [a for t, a in zip(self.argtypes, args) if t is _I]
+            raise ValueError(
+                f"{self.name} kernel: its entry point refused the sizes and "
+                f"plan {sizes} (invalid argument)")
         if err != 0:
             raise RuntimeError(
                 f"{self.name} kernel: CUDA error {err} "
@@ -150,10 +162,10 @@ class Kernel:
         self.launches += 1
 
 
-KNN = Kernel("knn", "dh3d_knn", [_P, _P, _P, _P, _I, _I, _I, _I])
+KNN = Kernel("knn", "dh3d_knn", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I])
 KNN_TOPK = Kernel("knn_topk", "dh3d_knn_topk",
                   [_P, _P, _P, _P, _I, _I, _I, _I])
-FPS = Kernel("fps", "dh3d_fps", [_P, _P, _I, _I, _I])
+FPS = Kernel("fps", "dh3d_fps", [_P, _P, _I, _I, _I, _I, _I])
 WEIGHTED_SUM = Kernel("weighted_sum", "dh3d_weighted_sum",
                       [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I])
 NEIGHBOR_MAX = Kernel("neighbor_max", "dh3d_neighbor_max",
@@ -175,11 +187,19 @@ def counts() -> dict:
     return {k.name: k.launches for k in KERNELS}
 
 
-def fps_max_points(device: torch.device, cluster: int = 8) -> int:
+def fps_max_points(device: torch.device, cluster: int = 8,
+                   threads: int = 128) -> int:
     """The largest cloud the FPS kernel samples on `device` with `cluster`
-    blocks a cloud: 1 is the single-block kernel, 2..8 the cluster kernel
-    (8, the default, is the most `farthest_point_sample` takes)."""
-    return int(library().dh3d_fps_max_points(device.index or 0, cluster))
+    blocks of `threads` threads a cloud (8 blocks of 128, the default, is
+    the most `farthest_point_sample` takes); 0 for a plan it refuses."""
+    return int(library().dh3d_fps_max_points(device.index or 0, cluster,
+                                             threads))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of CUDA device `device_index`."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

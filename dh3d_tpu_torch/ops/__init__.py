@@ -2,7 +2,8 @@
 
 Kernelled ops (CUDA kernel for CUDA tensors, plain PyTorch for CPU
 tensors): `knn` (and `knn_bruteforce`, `knn_bruteforce_pairwise`,
-`three_nn` on it), `farthest_point_sample`, `weighted_sum` (and
+`three_nn` on it; launch plan `knn_plan`), `farthest_point_sample` (launch
+plan `fps_plan`), `weighted_sum` (and
 `flex_conv`, `conv_pointset`, `three_interpolate` on it) with its backward
 `weighted_sum_backward`, `neighbor_max` (and `flex_pool`) with its backward
 `neighbor_max_backward`; `NeighborInverse` shares the CSR inverse those
@@ -27,6 +28,8 @@ from dh3d_tpu_torch.ops.knn import (
     knn_bruteforce,
     knn_bruteforce_pairwise,
     knn_plain,
+    knn_plan,
+    knn_slabs,
 )
 from dh3d_tpu_torch.ops.morton import morton_codes, morton_perm
 from dh3d_tpu_torch.ops.neighborhood import (
@@ -45,15 +48,17 @@ from dh3d_tpu_torch.ops.neighborhood import (
 from dh3d_tpu_torch.ops.sampling import (
     farthest_point_sample,
     fps_plain,
+    fps_plan,
     gather_point,
     subsample,
 )
 
 __all__ = [
     "NeighborInverse", "conv_pointset", "farthest_point_sample", "flex_conv", "flex_pool",
-    "flex_weights", "fps_plain", "gather_neighbors", "gather_point",
+    "flex_weights", "fps_plain", "fps_plan", "gather_neighbors", "gather_point",
     "group_point", "inverse_distance_weights", "inverse_neighbors", "knn",
-    "knn_bruteforce", "knn_bruteforce_pairwise", "knn_plain",
+    "knn_bruteforce", "knn_bruteforce_pairwise", "knn_plain", "knn_plan",
+    "knn_slabs",
     "morton_codes", "morton_perm", "neighbor_max", "neighbor_max_backward",
     "neighbor_max_backward_plain", "neighbor_max_plain",
     "neighbor_max_with_slot", "subsample",

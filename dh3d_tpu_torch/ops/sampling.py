@@ -36,28 +36,56 @@ def fps_plain(points: torch.Tensor, npoint: int) -> torch.Tensor:
     return out
 
 
-def farthest_point_sample(points: torch.Tensor, npoint: int) -> torch.Tensor:
+# Kernel B's launch plan (`csrc/fps.cu`): C blocks (a thread-block
+# cluster when C > 1) of T threads a cloud.
+FPS_MAX_CLUSTER = 8  # the portable cluster size
+FPS_GPC_SMS = 16  # SMs a cluster can take in one GPC (132 = 8 GPCs of ~16)
+FPS_CLUSTER_THREADS = 128  # T in a cluster: C * T / 32 <= 32 slots
+FPS_BLOCK_THREADS = 256  # T for one block a cloud
+FPS_REGISTER_POINTS = 32  # points a thread of 128 or 256 keeps in registers
+
+
+def fps_plan(B: int, N: int, sm_count: int) -> tuple:
+    """Kernel B's plan (C, T) for B clouds of N points.
+
+    C: the most blocks a cloud, 8, 4 or 2, for which all B clusters run at
+    once (a cluster takes C SMs of one GPC: FPS_GPC_SMS // C clusters a
+    GPC, sm_count // FPS_GPC_SMS GPCs), else 1; then doubled (to at most 8)
+    while the cloud does not fit the registers of C blocks.  T: 128 threads
+    in a cluster, 256 for one block.  The sweep of every (C, T) at the
+    path's shapes on an H100 (`chip_smoke.py --sweep`; PERF.md) chose
+    these."""
+    gpcs = max(1, sm_count // FPS_GPC_SMS)
+    c = next((c for c in (8, 4, 2) if B <= gpcs * (FPS_GPC_SMS // c)), 1)
+    t = FPS_CLUSTER_THREADS if c > 1 else FPS_BLOCK_THREADS
+    while c < FPS_MAX_CLUSTER and N > c * t * FPS_REGISTER_POINTS:
+        c, t = 2 * c, FPS_CLUSTER_THREADS
+    return c, t
+
+
+def farthest_point_sample(points: torch.Tensor, npoint: int,
+                          plan=None) -> torch.Tensor:
     """Iterative farthest point sampling seeded at index 0.
 
     points [B, N, 3] float32, contiguous; 1 <= npoint <= N.  Returns
     [B, npoint] int64.  CPU tensors take the plain version; CUDA tensors
-    launch kernel B, which holds a cloud in the shared memory of one block
-    or of a cluster of up to 8 blocks (16 bytes a point), and raises
-    ValueError for an N beyond that (`kernels.fps_max_points`, ~116,000 on
-    an H100)."""
+    launch kernel B with `plan` (C, T) or `fps_plan`'s.  It holds a cloud
+    in the registers and shared memory of C <= 8 blocks; its entry point
+    refuses, and this raises ValueError for, an N beyond that
+    (`kernels.fps_max_points`, ~147,000 with 8 blocks of 128 threads on an
+    H100) or a plan it does not take."""
     kernels.check(points, "points", torch.float32, (None, None, 3))
     B, N, _ = points.shape
     if not 1 <= npoint <= N:
         raise ValueError(f"npoint={npoint} outside [1, N={N}]")
     if not kernels.on_cuda(points):
         return fps_plain(points, npoint)
-    limit = kernels.fps_max_points(points.device)
-    if N > limit:
-        raise ValueError(f"fps kernel: N={N} above its limit N <= {limit} "
-                         f"on {points.device}")
-    out = torch.empty(B, npoint, dtype=torch.int64, device=points.device)
-    kernels.FPS.launch(points.device, points.data_ptr(), out.data_ptr(),
-                       B, N, npoint)
+    dev = points.device
+    c, t = plan if plan is not None else fps_plan(
+        B, N, kernels.sm_count(dev.index or 0))
+    out = torch.empty(B, npoint, dtype=torch.int64, device=dev)
+    kernels.FPS.launch(dev, points.data_ptr(), out.data_ptr(), B, N, npoint,
+                       c, t)
     return out
 
 

@@ -6,9 +6,13 @@ that every test worker collects the same tests).  Run on a card with
 `python -m pytest tests/test_torch_cuda.py -m cuda -q`.
 
 Shapes are small versions of the main path's (N not a multiple of
-anything, to exercise the ragged edges), but for FPS beyond one block's
-shared memory.  kNN (kernels A and G) and FPS must equal their plain
-versions exactly (both build d2 from the same rounded terms);
+anything, to exercise the ragged edges), but for FPS at the path's and the
+eval's sizes.  Kernels A and B also run at every launch plan they take
+(A's key slabs, `slabs=`; B's blocks a cloud and threads a block,
+`plan=`), on clouds with exact duplicates and on integer grids.
+kNN (kernels A and G) and FPS must equal their plain versions exactly
+(both build d2 from the same rounded terms), at every plan and on a
+second run;
 neighbour max and its slot exactly; weighted sums and both backwards to
 1e-5 relative (FMA accumulation in the kernels, batched matmuls and
 atomic scatters in the plain versions).  The backwards also run at the
@@ -45,9 +49,9 @@ def cloud(device):
     return torch.from_numpy(rng.randn(B, N, 3).astype(np.float32) * 30).to(device)
 
 
-def _counted(kernel, fn, *args):
+def _counted(kernel, fn, *args, **kwargs):
     before = kernel.launches
-    out = fn(*args)
+    out = fn(*args, **kwargs)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     return out
@@ -89,8 +93,8 @@ def test_fps_equals_plain(cloud):
 
 @pytest.mark.parametrize("n", ["one block + 1", 16384, 65536])
 def test_fps_beyond_one_block_equals_plain(device, n):
-    """Clouds that do not fit one block's shared memory take the cluster
-    kernel: the smallest such N, the lidar eval size, and 65,536."""
+    """Clouds that do not fit one block's registers and shared memory take
+    a cluster: the smallest such N, the lidar eval size, and 65,536."""
     if n == "one block + 1":
         n = kernels.fps_max_points(device, 1) + 1
     assert kernels.fps_max_points(device) >= 65536
@@ -99,6 +103,96 @@ def test_fps_beyond_one_block_equals_plain(device, n):
     m = 2048 if n == 16384 else 200
     idx = _counted(kernels.FPS, T.farthest_point_sample, pts, m)
     assert torch.equal(idx, T.fps_plain(pts, m))
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 16, 32])
+@pytest.mark.parametrize("cloud_kind", ["normal", "grid", "few keys"])
+def test_knn_every_plan_equals_plain(device, k, cloud_kind):
+    """Kernel A with S = 1, 2 and 7 key slabs equals the plain version bit
+    for bit: on a normal cloud with exact duplicate keys, on an integer
+    grid (many equal distances), and on 100 keys (Nk < 256, slabs of 15 at
+    S = 7, shorter than k from k = 16); two runs give the same bits."""
+    g = torch.Generator().manual_seed(k)
+    if cloud_kind == "grid":
+        keys = torch.randint(0, 6, (2, 700, 3), generator=g).float()
+    else:
+        keys = torch.randn(2, 100 if cloud_kind == "few keys" else 700, 3,
+                           generator=g) * 5
+        keys[:, 60:80] = keys[:, 20:40]  # duplicate keys
+    query = torch.cat([keys[:, :90], torch.randn(2, 287, 3, generator=g)],
+                      1).contiguous()  # Nq = 377: ragged blocks
+    pidx, pd2 = T.knn_plain(query, keys, k)
+    qd, kd = query.to(device), keys.to(device)
+    for s in (1, 2, 7):
+        idx, d2 = _counted(kernels.KNN, T.knn, qd, kd, k, slabs=s)
+        assert torch.equal(idx.cpu(), pidx), s
+        assert torch.equal(d2.cpu(), pd2), s
+        again = T.knn(qd, kd, k, slabs=s)
+        assert torch.equal(again[0], idx) and torch.equal(again[1], d2)
+
+
+def test_knn_refuses_a_plan_it_does_not_take(cloud):
+    """The entry point refuses S above Nk, S above 64 and k above 32, and
+    the launch raises ValueError without counting a launch."""
+    before = kernels.KNN.launches
+    with pytest.raises(ValueError, match="invalid argument"):
+        T.knn(cloud, cloud[:, :5].contiguous(), 3, slabs=6)
+    with pytest.raises(ValueError, match="invalid argument"):
+        T.knn(cloud, cloud, 3, slabs=65)
+    idx = torch.empty(B, N, 33, dtype=torch.int64, device=cloud.device)
+    d2 = torch.empty(B, N, 33, device=cloud.device)
+    with pytest.raises(ValueError, match="invalid argument"):
+        kernels.KNN.launch(cloud.device, cloud.data_ptr(), cloud.data_ptr(),
+                           idx.data_ptr(), d2.data_ptr(), None, None, B, N,
+                           N, 33, 1)
+    assert kernels.KNN.launches == before
+
+
+# FPS at the shapes of the forward, the lidar and dso eval sizes and a
+# large cloud
+FPS_SHAPES = [(20, 8192, 1024), (1, 16384, 2048), (1, 9000, 1125),
+              (1, 40000, 5000)]
+
+
+@pytest.mark.parametrize("b,n,m", FPS_SHAPES)
+def test_fps_every_cluster_equals_plain(device, b, n, m):
+    """Kernel B with C = 1, 2, 4, 8 blocks a cloud of 128, 256 or 1024
+    threads equals the plain version, twice; a cluster of more than 32
+    warps, or blocks that cannot hold the cloud, raise."""
+    g = torch.Generator().manual_seed(n)
+    pts = (torch.randn(b, n, 3, generator=g) * 30).to(device)
+    ref = T.fps_plain(pts, m)
+    for c in (1, 2, 4, 8):
+        for t in (128, 256, 1024):
+            if c > 1 and c * t // 32 > 32:
+                with pytest.raises(ValueError, match="invalid argument"):
+                    T.farthest_point_sample(pts, m, plan=(c, t))
+                continue
+            if n > kernels.fps_max_points(device, c, t):
+                with pytest.raises(ValueError, match="invalid argument"):
+                    T.farthest_point_sample(pts, m, plan=(c, t))
+                continue
+            idx = _counted(kernels.FPS, T.farthest_point_sample, pts, m,
+                           plan=(c, t))
+            assert torch.equal(idx, ref), (c, t)
+            assert torch.equal(T.farthest_point_sample(pts, m, plan=(c, t)),
+                               idx)
+
+
+@pytest.mark.parametrize("c", [1, 2, 4, 8])
+def test_fps_one_point_and_integer_grid(device, c):
+    """N = m = 1 at every C (blocks without points); an integer-grid cloud
+    of 3000 points on 512 positions sampled to 600, so that minds of +0
+    (duplicates of picked points) tie, at 96 and 128 threads."""
+    one = torch.zeros(1, 1, 3, device=device)
+    assert T.farthest_point_sample(one, 1, plan=(c, 128)).tolist() == [[0]]
+    g = torch.Generator().manual_seed(c)
+    grid = torch.randint(0, 8, (2, 3000, 3), generator=g).float().to(device)
+    ref = T.fps_plain(grid, 600)
+    for t in (96, 128):
+        idx = _counted(kernels.FPS, T.farthest_point_sample, grid, 600,
+                       plan=(c, t))
+        assert torch.equal(idx, ref), t
 
 
 @pytest.mark.parametrize("k", [33, 50, 128])
