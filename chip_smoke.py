@@ -17,12 +17,19 @@ result line:
      work is hidden).  Beside each: its bound (`bound`: the bytes of its
      inputs and outputs over the memory rate or its f32 operations over the
      f32 rate, whichever is larger) and, where PyTorch has one, the library
-     route for the same function (`library_ms`).  Kernels E and F run at
+     route for the same function (`library_ms`).  Kernels C and D run at
+     every shape of the forward (`forward_cases`: the moments through
+     `flex_moments`, which must give the bits of `weighted_sum` on the
+     weight tensor; D with and without its ids and its slot, and once on
+     features with NaNs), with the time of the weight build that left the
+     path and of every forced launch plan (`row_plans`), each of which
+     must give the path's bits.  Kernels E and F run at
      every shape of the train step (`backward_cases`), with the CSR inverse
      handed in (as on the path: `ms`, bounded by the inverse's bytes) and
      built in the call (`ms_fresh_inverse`, bounded by nbh's), and must
-     give the same bits both ways and on a second run; the inverse's build
-     is timed alone.  Kernels A and B run at every shape of the path
+     give the same bits both ways and on a second run; E at P = 4 both on
+     the weight tensor and on the positions (the same bits); the inverse's
+     build is timed alone.  Kernels A and B run at every shape of the path
      (`knn_fps_cases`: the forward's, the train step's and the
      extraction's), each with the plan it took; beside A's bound its
      instruction floor (the 7 instructions every pair issues in its x-y
@@ -80,8 +87,10 @@ The first imports `dh3d_tpu_torch` from DIR (a checkout, or a tree unpacked
 there with `git archive`; it needs `ops.inverse_neighbors` and the kernel
 launch counts) and writes OUT/ab_NAME.json (OUT defaults to `chiprun_out`
 beside this script): for every case of `knn_fps_cases` (the tree's own
-plans) and of `backward_cases`, the output's sha256 and its device time
-(E and F called without an inverse: the tree's own route, which builds the
+plans), of `forward_cases` (C and D as the tree's path calls them: a tree
+from before `flex_moments` builds the weight tensor first, and that build
+is also timed alone) and of `backward_cases`, the output's sha256 and its
+device time (E and F called without an inverse: the tree's own route, which builds the
 inverse in the call, as the parent of the shared inverse did on its path;
 and the build alone); one full-width forward and one batch-1 extraction
 forward at N=16384 (`models/demo_stage2`, as phase 9 runs it): output
@@ -90,13 +99,16 @@ one call by kernel class, so the device's idle share; over one full-width
 train step, the inverses built, the launches of E and F, the profiler's
 device time of E, F and the builds, the step time (median of 7) and the
 peak memory.  The second checks that every case's hash and both forwards'
-agree across the files and prints the times side by side.
+agree across the files (but a case with NaN inputs, and a case only some
+trees have) and prints the times side by side.
 
     python3 chip_smoke.py --sweep [--out OUT]
 
 times every plan kernels A and B take at each shape of `knn_fps_cases`,
-each output checked equal to the plain version, into OUT/sweep.json: the
-measurements `knn_plan` and `fps_plan` were chosen from.
+each output checked equal to the plain version, and kernels C and D at
+each shape of `forward_cases` at 8, 16 and 32 lanes a row, each output
+checked equal to the path's, into OUT/sweep.json: the measurements
+`knn_plan`, `fps_plan` and `row_plan` were chosen from.
 """
 
 from __future__ import annotations
@@ -143,21 +155,22 @@ REPLACES = {
              "dh3d_tpu/ops/pallas/knn_pallas.py:112"]),
     "knn_topk": ("dh3d_tpu/ops/pallas/knn_pallas.py:259", []),
     "fps": ("dh3d_tpu/ops/pallas/fps_pallas.py:31", []),
-    "weighted_sum": (f"{BANDED}:77", [f"{BANDED}:432", f"{BANDED}:1294"]),
+    "weighted_sum": (f"{BANDED}:77", [f"{BANDED}:1294"]),
+    "flex_moments": (f"{BANDED}:432", [f"{BANDED}:1294"]),
     "neighbor_max": (f"{BANDED}:896", []),
-    "weighted_sum_backward": (f"{BANDED}:479", [f"{BANDED}:105",
-                                                f"{BANDED}:147",
+    "weighted_sum_backward": (f"{BANDED}:147", [f"{BANDED}:105",
                                                 f"{BANDED}:1294"]),
+    "flex_moments_backward": (f"{BANDED}:479", [f"{BANDED}:1294"]),
     "neighbor_max_backward": (f"{BANDED}:187", [f"{BANDED}:1294"]),
 }
 SOURCES = {
     "knn": "dh3d_tpu_torch/csrc/knn.cu",
     "knn_topk": "dh3d_tpu_torch/csrc/knn_topk.cu",
     "fps": "dh3d_tpu_torch/csrc/fps.cu",
-    "weighted_sum": "dh3d_tpu_torch/csrc/neighborhood.cu",
-    "neighbor_max": "dh3d_tpu_torch/csrc/neighborhood.cu",
-    "weighted_sum_backward": "dh3d_tpu_torch/csrc/neighborhood.cu",
-    "neighbor_max_backward": "dh3d_tpu_torch/csrc/neighborhood.cu",
+    **{name: "dh3d_tpu_torch/csrc/neighborhood.cu"
+       for name in ("weighted_sum", "flex_moments", "neighbor_max",
+                    "weighted_sum_backward", "flex_moments_backward",
+                    "neighbor_max_backward")},
 }
 # The card's rates for the bounds (H100 SXM datasheet: HBM3, and f32
 # outside the tensor cores)
@@ -173,11 +186,15 @@ KNN_FLOOR_INSTRUCTIONS_PER_PAIR = 7
 # Kernel B's plans timed at [20,1024]->1024 for its chain floor
 CHAIN_FLOOR_PLANS = ((1, 128), (1, 256), (1, 1024), (2, 128), (4, 128),
                      (8, 128))
-# the forward (phase 4) runs A-D; the train step (phase 6) A-F; the local
-# extraction with NMS (phase 8) A-D and G
-FORWARD_KERNELS = ("knn", "fps", "weighted_sum", "neighbor_max")
+# the forward (phase 4) runs A-D (C through both its entry points: on
+# weights and, for the flex-conv moments, on positions); the train step
+# (phase 6) A-F (E likewise); the local extraction with NMS (phase 8) A-D
+# and G
+FORWARD_KERNELS = ("knn", "fps", "weighted_sum", "flex_moments",
+                   "neighbor_max")
 EXTRACT_KERNELS = FORWARD_KERNELS + ("knn_topk",)
 TRAIN_KERNELS = FORWARD_KERNELS + ("weighted_sum_backward",
+                                   "flex_moments_backward",
                                    "neighbor_max_backward")
 NMS = {"k": 50, "radius": 0.5, "ratio": 0.01, "max_kp": 512}  # CLI defaults
 
@@ -297,13 +314,15 @@ def backward_cases(torch, T, device):
     w3 = T.inverse_distance_weights(d2_3)[..., None].contiguous()
     rnd = torch.randint(0, N, (B, N, K), generator=g).to(device)
     cases = []
-    for label, C, idx, w, keys in (
-            (f"P=4 C=64 K=8 [{B},{N}]", 64, nbh, w4, N),
-            (f"P=4 C=32 K=8 [{B},{N}]", 32, nbh, w4, N),
-            (f"P=4 C=64 K=8 [{B},{M}]", 64, nbh1, w4s, M),
-            (f"P=4 C=128 K=8 [{B},{M}]", 128, nbh1, w4s, M),
-            (f"P=1 C=128 K=3 [{B},{N}]->[{B},{M}]", 128, idx3, w3, M),
-            (f"P=4 C=64 K=8 [{B},{N}] random idx", 64, rnd, w4, N)):
+    for label, C, idx, w, keys, pos in (  # first: E on weights on the path
+            (f"P=1 C=128 K=3 [{B},{N}]->[{B},{M}]", 128, idx3, w3, M, None),
+            (f"P=4 C=64 K=8 [{B},{N}]", 64, nbh, w4, N, pts),
+            (f"P=4 C=32 K=8 [{B},{N}]", 32, nbh, w4, N, pts),
+            (f"P=4 C=64 K=8 [{B},{M}]", 64, nbh1, w4s, M, sub),
+            (f"P=4 C=128 K=8 [{B},{M}]", 128, nbh1, w4s, M, sub),
+            (f"P=4 C=64 K=8 [{B},{N}] random idx", 64, rnd, None, N, pts)):
+        if w is None:  # the weights the random ids give
+            w = T.flex_weights(pos, idx)
         P = w.shape[-1]
         dm = torch.randn(B, idx.shape[1], P * C, generator=g).to(device)
         contrib = torch.einsum("bnkp,bnpc->bnkc", w,
@@ -317,6 +336,10 @@ def backward_cases(torch, T, device):
             plain=partial(T.weighted_sum_backward_plain, dm, idx, w, keys),
             library_call=partial(dm.new_zeros(B * keys, C).index_add_, 0,
                                  rows, contrib)))
+        if pos is not None and hasattr(T, "flex_moments_backward"):
+            cases.append(dict(
+                cases[-1], name="flex_moments_backward", reads=(dm, pos, idx),
+                call=partial(T.flex_moments_backward, dm, pos, idx)))
     for label, C, idx, keys in ((f"C=32 K=8 [{B},{N}]", 32, nbh, N),
                                 (f"C=64 K=8 [{B},{N}]", 64, nbh, N),
                                 (f"C=128 K=8 [{B},{M}]", 128, nbh1, M)):
@@ -332,6 +355,121 @@ def backward_cases(torch, T, device):
                           keys),
             library_call=partial(dval.new_zeros(B, keys, C).scatter_add_, 1,
                                  ids, dval)))
+    return cases
+
+
+def row_plans(T, C, K):
+    """The plans kernels C and D are forced to at C channels: `row_plan`'s
+    at each vector width the alignment may leave, and four channels a
+    thread at 8, 16 and 32 lanes a row."""
+    plans = {T.row_plan(C, K, v) for v in (4, 2, 1)}
+    if C % 4 == 0:
+        plans |= {(4, lanes, -(-C // (4 * lanes))) for lanes in (8, 16, 32)}
+    return sorted(plans)
+
+
+def forward_cases(torch, T, device):
+    """Kernels C and D at every shape of the forward (and D as the train
+    step calls it), and C once on random ids, on seeded inputs that are the
+    same on every tree of the port.  One dict a case: `name` (the kernel),
+    `label`; `call`, the op as the tree's path calls it, returning a tuple
+    of tensors (a tree from before `flex_moments` builds the weights with
+    `flex_weights` and sums them; a tree from before `with_arg` writes
+    the ids and returns them); `plain`, the same tuple from the plain
+    version; `inputs` (for the bound and the hash) and `ops`, f32
+    operations; `forced(plan)`, the op with a given launch plan (a
+    tree with `row_plan`), and `C`, `K` for the plans; C: `sparse`, the
+    operands (idx, w, f) of the library route; the moments: `explicit`,
+    the same sum on the weight tensor, and `weights`, the build of that
+    tensor; D: `nan`, whether the features hold NaNs (a tree from before
+    the NaN rule differs there)."""
+    import inspect
+
+    pts, sub, nbh, nbh1, (d2_3, idx3) = train_geometry(torch, T, device)
+    B, N, K = nbh.shape
+    M = sub.shape[1]
+    g = torch.Generator(device="cpu").manual_seed(2)
+    feats = {(n, c): torch.randn(B, n, c, generator=g).to(device)
+             for n, c in ((N, 32), (N, 64), (M, 64), (M, 128), (M, 256))}
+    rnd = torch.randint(0, N, (B, N, K), generator=g).to(device)
+    w1 = torch.ones(B, N, K, 1, device=device)
+    w1[:, :, 0] = 1 - K
+    w3 = T.inverse_distance_weights(d2_3)[..., None].contiguous()
+    has_moments = hasattr(T, "flex_moments")
+    has_arg = "with_arg" in inspect.signature(T.neighbor_max).parameters
+    cases = []
+
+    def tensors(out):
+        out = out if isinstance(out, (tuple, list)) else (out,)
+        return tuple(t for t in out if t is not None)
+
+    for label, f, pos, idx in (
+            (f"P=4 C=64 K=8 [{B},{N}]", feats[N, 64], pts, nbh),
+            (f"P=4 C=32 K=8 [{B},{N}]", feats[N, 32], pts, nbh),
+            (f"P=4 C=64 K=8 [{B},{M}]", feats[M, 64], sub, nbh1),
+            (f"P=4 C=128 K=8 [{B},{M}]", feats[M, 128], sub, nbh1),
+            (f"P=4 C=64 K=8 [{B},{N}] random idx", feats[N, 64], pts, rnd)):
+        w = T.flex_weights(pos, idx)
+        if has_moments:
+            call = partial(T.flex_moments, f, pos, idx)
+        else:
+            def call(f=f, pos=pos, idx=idx):
+                return T.weighted_sum(f, idx, T.flex_weights(pos, idx))
+        cases.append(dict(
+            name="flex_moments", label=label, inputs=(f, idx, pos),
+            C=f.shape[-1], K=K, ops=2 * w.numel() * f.shape[-1],
+            call=lambda call=call: tensors(call()),
+            plain=lambda f=f, idx=idx, w=w: tensors(
+                T.weighted_sum_plain(f, idx, w)),
+            forced=lambda plan, f=f, pos=pos, idx=idx: tensors(
+                T.flex_moments(f, pos, idx, plan=plan)),
+            explicit=lambda f=f, idx=idx, w=w: tensors(
+                T.weighted_sum(f, idx, w)),
+            weights=partial(T.flex_weights, pos, idx), sparse=(idx, w, f)))
+    for label, f, idx, w in (
+            (f"P=1 C=256 K=3 [{B},{N}]<-[{B},{M}]", feats[M, 256], idx3, w3),
+            (f"P=1 C=128 K=3 [{B},{N}]<-[{B},{M}]", feats[M, 128], idx3, w3),
+            (f"P=1 C=3 K=8 [{B},{N}] (raw xyz)", pts, nbh, w1)):
+        cases.append(dict(
+            name="weighted_sum", label=label, inputs=(f, idx, w),
+            C=f.shape[-1], K=idx.shape[-1], ops=2 * w.numel() * f.shape[-1],
+            call=lambda f=f, idx=idx, w=w: tensors(T.weighted_sum(f, idx, w)),
+            plain=lambda f=f, idx=idx, w=w: tensors(
+                T.weighted_sum_plain(f, idx, w)),
+            forced=lambda plan, f=f, idx=idx, w=w: tensors(
+                T.weighted_sum(f, idx, w, plan=plan)),
+            sparse=(idx, w, f)))
+
+    # D: as the forward calls it (value only), as the train step does
+    # (value and slot), and with the ids; once on features with NaNs
+    noisy = feats[N, 64].clone()
+    noisy[torch.rand(B, N, 64, generator=g).to(device) < 0.01] = float("nan")
+    for label, f, idx, nan in (
+            (f"C=64 K=8 [{B},{N}]", feats[N, 64], nbh, False),
+            (f"C=32 K=8 [{B},{N}]", feats[N, 32], nbh, False),
+            (f"C=128 K=8 [{B},{M}]", feats[M, 128], nbh1, False),
+            (f"C=64 K=8 [{B},{N}] 1% NaN", noisy, nbh, True)):
+        for ids, slot in ((False, False), (False, True), (True, False),
+                          (True, True)):
+            if nan and (ids, slot) != (True, True):
+                continue
+            fn = T.neighbor_max_with_slot if slot else T.neighbor_max
+            kw = {"with_arg": ids} if has_arg else {}
+            keep = [0] + [1] * ids + [2] * slot
+
+            def call(fn=fn, f=f, idx=idx, kw=kw, keep=keep, **more):
+                out = fn(f, idx, **kw, **more)
+                if has_arg:
+                    return tensors(out)
+                return tuple(out[i] for i in keep)  # the ids written, unread
+
+            cases.append(dict(
+                name="neighbor_max", nan=nan, inputs=(f, idx), C=f.shape[-1],
+                K=K, ops=idx.numel() * f.shape[-1],
+                label=label + " +id" * ids + " +slot" * slot, call=call,
+                plain=lambda f=f, idx=idx, keep=keep: tuple(
+                    T.neighbor_max_plain(f, idx)[i] for i in keep),
+                forced=lambda plan, call=call: call(plan=plan)))
     return cases
 
 
@@ -426,7 +564,8 @@ def kernel_phase(torch, T, device):
     cases = {name: [] for name in REPLACES}
 
     def flat(out):
-        return list(out) if isinstance(out, (tuple, list)) else [out]
+        out = out if isinstance(out, (tuple, list)) else [out]
+        return [t for t in out if t is not None]
 
     def case(name, shape, kernel_fn, plain_fn, compare, inputs, ops,
              library_fn=None, info=None, **extra):
@@ -475,13 +614,6 @@ def kernel_phase(torch, T, device):
         assert err <= WSUM_REL * ref.abs().max().item(), err
         return err
 
-    def same_max(out, ref):
-        assert torch.equal(out[0], ref[0]), "max values differ"
-        assert torch.equal(out[1], ref[1]), "argmax ids differ"
-        if len(out) == 3:
-            assert torch.equal(out[2], ref[2]), "argmax slots differ"
-        return 0.0
-
     def knn_case(name, shape, q, keys, k):
         case(name, shape, lambda: T.knn(q, keys, k),
              lambda: T.knn_plain(q, keys, k), same_knn, (q, keys),
@@ -524,44 +656,55 @@ def kernel_phase(torch, T, device):
                 f"{row['chain_floor_ms']:.3f} ms ({chain_us:.3f} us an "
                 f"iteration); {row['us_per_iteration']:.3f} us an iteration")
 
-    # C: the flex-conv moments, initconv's difference sum, the upsample,
-    # and once on random (non-banded) indices; library: one sparse product
-    def wsum_case(shape, f, idx, w):
-        S = sparse_rows(torch, idx, w, f.shape[1])  # built once, not timed
-        f2 = f.reshape(-1, f.shape[-1])
-        case("weighted_sum", shape, lambda: T.weighted_sum(f, idx, w),
-             lambda: T.weighted_sum_plain(f, idx, w), wsum_close,
-             (f, idx, w), 2 * w.numel() * f.shape[-1],
-             library_fn=lambda: torch.sparse.mm(S, f2).reshape(
-                 idx.shape[0], idx.shape[1], -1))
+    # C and D at every shape of the forward (`forward_cases`): the tree's
+    # own plan against the plain version and, for C, one sparse product;
+    # then every forced plan, which must give the path's bits, timed.  The
+    # moments also against the same sum on the weight tensor `flex_weights`
+    # builds (same bits; `explicit_weights_ms`, `weights_build_ms`: what
+    # left the path).
+    def same_bits(out, ref):
+        assert len(out) == len(ref)
+        for a, r in zip(out, ref):
+            nan = r.isnan() if r.is_floating_point() else None
+            if nan is not None and nan.any():
+                assert torch.equal(a.isnan(), nan), "NaN positions differ"
+                a, r = a[~nan], r[~nan]
+            assert torch.equal(a, r), "max values, ids or slots differ"
+        return 0.0
 
-    f64 = torch.randn(B, N, 64, generator=g).to(device)
-    w4 = T.flex_weights(pts, nbh)
-    wsum_case(f"P=4 C=64 K=8 [{B},{N}]", f64, nbh, w4)
-    w1 = torch.ones(B, N, K, 1, device=device)
-    w1[:, :, 0] = 1 - K
-    wsum_case(f"P=1 C=3 K=8 [{B},{N}] (raw xyz)", pts, nbh, w1)
-    w3 = T.inverse_distance_weights(d2_3)[..., None].contiguous()
-    f256 = torch.randn(B, M, 256, generator=g).to(device)
-    wsum_case(f"P=1 C=256 K=3 [{B},{N}]<-[{B},{M}]", f256, idx3, w3)
-    rnd = torch.randint(0, N, (B, N, K), generator=g).to(device)
-    wsum_case(f"P=4 C=64 K=8 [{B},{N}] random idx", f64, rnd, w4)
-
-    # D: flex_pool of stage 1, without and with the slot of the backward
-    case("neighbor_max", f"C=64 K=8 [{B},{N}]",
-         lambda: T.neighbor_max(f64, nbh),
-         lambda: T.neighbor_max_plain(f64, nbh)[:2], same_max, (f64, nbh),
-         nbh.numel() * 64)
-    case("neighbor_max", f"C=64 K=8 [{B},{N}] with slot",
-         lambda: T.neighbor_max_with_slot(f64, nbh),
-         lambda: T.neighbor_max_plain(f64, nbh), same_max, (f64, nbh),
-         nbh.numel() * 64)
+    for c in forward_cases(torch, T, device):
+        is_max = c["name"] == "neighbor_max"
+        extra, library = {}, None
+        if not is_max:
+            idx, w, f = c["sparse"]
+            S = sparse_rows(torch, idx, w, f.shape[1])  # not timed
+            f2 = f.reshape(-1, f.shape[-1])
+            library = lambda S=S, f2=f2, idx=idx: (torch.sparse.mm(
+                S, f2).reshape(idx.shape[0], idx.shape[1], -1),)
+        if "explicit" in c:
+            same_bits(c["call"](), c["explicit"]())
+            extra.update(explicit_weights_ms=c["explicit"],
+                         weights_build_ms=c["weights"])
+        row = case(c["name"], c["label"], c["call"], c["plain"],
+                   same_bits if is_max else
+                   (lambda out, ref: wsum_close(out[0], ref[0])),
+                   c["inputs"], c["ops"], library_fn=library,
+                   info={"plan": list(T.row_plan(c["C"], c["K"]))}, **extra)
+        out = c["call"]()
+        same_bits(c["call"](), out)  # two runs
+        row["plans_ms"] = {}
+        for plan in row_plans(T, c["C"], c["K"]):
+            same_bits(c["forced"](plan), out)
+            row["plans_ms"][str(list(plan))] = device_ms(
+                torch, partial(c["forced"], plan), reps=3)
+        log(f"    by plan {row['plans_ms']}")
 
     # E and F at every shape of the train step: the inverse handed in (as
     # on the path: `ms`, bounded by the bytes of the inverse it reads) and
     # built in the call (`ms_fresh_inverse`, bounded by those of nbh); both
     # give the same bits, as does a second run.  Library: the plain
     # version's route and its last call alone; the build alone.
+    on_weights = {}  # E on the weight tensor, by label
     for c in backward_cases(torch, T, device):
         inv = T.NeighborInverse(c["nbh"], c["keys"])
         csr = inv.get()
@@ -570,6 +713,11 @@ def kernel_phase(torch, T, device):
         assert torch.equal(out, path()), f"{c['label']}: two runs differ"
         assert torch.equal(out, fresh()), \
             f"{c['label']}: shared and fresh inverse differ"
+        if c["name"] == "weighted_sum_backward":
+            on_weights[c["label"]] = out
+        elif c["name"] == "flex_moments_backward":
+            assert torch.equal(out, on_weights[c["label"]]), \
+                f"{c['label']}: E on positions and on weights differ"
         case(c["name"], c["label"], path, c["plain"], wsum_close,
              (*c["reads"], *csr), c["ops"], library_fn=c["plain"],
              ms_fresh_inverse=fresh,
@@ -1155,6 +1303,8 @@ def main():
     B, N = 20, 8192
     fn, (points,) = entry(device, batch=B)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # phase 3's tensors and plain versions
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
     outs = fn(points)
     torch.cuda.synchronize()
@@ -1287,6 +1437,22 @@ def ab_run(root, label, out_dir):
             "sha256": "/".join(sha(t) for t in outs),
             "call_ms": device_ms(torch, c["call"]), "plan": c["plan"]}
         log(f"  {c['name']} {c['label']:42s} {r}")
+    for c in forward_cases(torch, T, device):
+        out = c["call"]()
+        for a, b in zip(out, c["call"]()):
+            assert torch.equal(a, b) or c.get("nan"), \
+                f"{c['label']}: two runs differ"
+        key = f"{c['name']} {c['label']}"
+        report["cases"][key] = r = {
+            "input_sha256": sha(torch.cat([t.flatten().float()
+                                           for t in c["inputs"]])),
+            "sha256": "/".join(sha(t) for t in out),
+            "nan": c.get("nan", False),
+            "call_ms": device_ms(torch, c["call"])}
+        if "weights" in c:  # the four ops of flex_weights, alone
+            r["weights_build_ms"] = device_ms(torch, c["weights"])
+        log(f"  {key:60s} {r}")
+    on_weights = {}
     for c in backward_cases(torch, T, device):
         out = c["call"]()
         assert torch.equal(out, c["call"]()), f"{c['label']}: two runs differ"
@@ -1295,6 +1461,10 @@ def ab_run(root, label, out_dir):
             "call_ms": device_ms(torch, c["call"]),
             "build_ms": device_ms(torch, partial(T.inverse_neighbors,
                                                  c["nbh"], c["keys"]))}
+        if c["name"] == "weighted_sum_backward":
+            on_weights[c["label"]] = r["sha256"]
+        elif c["name"] == "flex_moments_backward":
+            assert r["sha256"] == on_weights[c["label"]], c["label"]
         log(f"  {c['name']} {c['label']:36s} {r}")
 
     # one full-width forward (phase 4's) and one batch-1 extraction forward
@@ -1336,7 +1506,8 @@ def ab_run(root, label, out_dir):
     report["train_step"] = {
         "inverse_builds": len(builds.nbh),
         "distinct_neighbourhoods": builds.distinct(),
-        "E_launches": launches["weighted_sum_backward"],
+        "E_launches": launches["weighted_sum_backward"]
+        + launches.get("flex_moments_backward", 0),
         "F_launches": launches["neighbor_max_backward"],
         "step_ms": step_ms,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
@@ -1367,9 +1538,10 @@ def forward_report(torch, fn, points, sha, clouds):
 
 
 def sweep_run(out_dir):
-    """Every plan kernels A and B take at each shape of `knn_fps_cases`:
-    output checked equal to the plain version, device time; written to
-    OUT/sweep.json."""
+    """Every plan kernels A and B take at each shape of `knn_fps_cases`
+    (output checked equal to the plain version) and kernels C and D at
+    each shape of `forward_cases` (equal to the path's), device time;
+    written to OUT/sweep.json."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1401,6 +1573,23 @@ def sweep_run(out_dir):
             f"{row['ms'][best]:.4f} ms; the plan's {c['plan']} "
             f"{row['ms'].get(str(c['plan']))}")
         report["cases"].append(row)
+    for c in forward_cases(torch, T, device):
+        if c.get("nan") or ("+" in c["label"] and "+id +slot" not in
+                            c["label"]):
+            continue  # D: the path's call and the one with every output
+        ref = c["call"]()
+        own = list(T.row_plan(c["C"], c["K"]))
+        row = {"name": c["name"], "label": c["label"], "plan": own, "ms": {}}
+        for plan in row_plans(T, c["C"], c["K"]):
+            fn = partial(c["forced"], plan)
+            for a, b in zip(fn(), ref):
+                assert torch.equal(a, b), (c["label"], plan)
+            row["ms"][str(list(plan))] = device_ms(torch, fn, reps=3)
+        best = min(row["ms"], key=row["ms"].get)
+        log(f"  {c['name']} {c['label']:42s} best {best} "
+            f"{row['ms'][best]:.4f} ms; the plan's {own} "
+            f"{row['ms'][str(own)]:.4f}; {row['ms']}")
+        report["cases"].append(row)
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "sweep.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -1413,14 +1602,27 @@ def ab_compare(paths):
     every file."""
     runs = [json.load(open(p)) for p in paths]
     ok = True
-    for key in runs[0]["cases"]:
+    for key in dict.fromkeys(k for r in runs for k in r["cases"]):
+        have = [r["label"] for r in runs if key in r["cases"]]
+        if len(have) < len(runs):  # an op only some trees have
+            log(f"  {key:60s} only in {have}  ms " + " / ".join(
+                f"{r['cases'][key]['call_ms']:.4f}" for r in runs
+                if key in r["cases"]))
+            continue
+        if runs[0]["cases"][key].get("nan"):  # the NaN rule may differ
+            log(f"  {key:60s} not compared  ms " + " / ".join(
+                f"{r['cases'][key]['call_ms']:.4f}" for r in runs))
+            continue
         hashes = {(r["cases"][key].get("nbh_sha256"),
                    r["cases"][key].get("input_sha256"),
                    r["cases"][key]["sha256"]) for r in runs}
         ok &= len(hashes) == 1
         log(f"  {key:60s} {'equal' if len(hashes) == 1 else 'DIFFER'}"
             f"  ms " + " / ".join(f"{r['cases'][key]['call_ms']:.4f}"
-                                  for r in runs))
+                                  for r in runs)
+            + ("; flex_weights alone " + " / ".join(
+                f"{r['cases'][key]['weights_build_ms']:.4f}" for r in runs)
+               if "weights_build_ms" in runs[0]["cases"][key] else ""))
     for fwd in ("forward", "extract_forward"):
         for out in runs[0][fwd]["sha256"]:
             same = len({r[fwd]["sha256"][out] for r in runs}) == 1

@@ -166,16 +166,21 @@ KNN = Kernel("knn", "dh3d_knn", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I])
 KNN_TOPK = Kernel("knn_topk", "dh3d_knn_topk",
                   [_P, _P, _P, _P, _I, _I, _I, _I])
 FPS = Kernel("fps", "dh3d_fps", [_P, _P, _I, _I, _I, _I, _I])
+# C and D: sizes, then the plan (vec, lanes, passes)
 WEIGHTED_SUM = Kernel("weighted_sum", "dh3d_weighted_sum",
-                      [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I])
+                      [_P, _P, _P, _P] + [_I] * 9)
+FLEX_MOMENTS = Kernel("flex_moments", "dh3d_flex_moments",
+                      [_P, _P, _P, _P] + [_I] * 9)
 NEIGHBOR_MAX = Kernel("neighbor_max", "dh3d_neighbor_max",
-                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I])
+                      [_P, _P, _P, _P, _P] + [_I] * 8)
 WEIGHTED_SUM_BWD = Kernel("weighted_sum_backward", "dh3d_weighted_sum_bwd",
                           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I])
+FLEX_MOMENTS_BWD = Kernel("flex_moments_backward", "dh3d_flex_moments_bwd",
+                          [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I])
 NEIGHBOR_MAX_BWD = Kernel("neighbor_max_backward", "dh3d_neighbor_max_bwd",
                           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I])
-KERNELS = (KNN, KNN_TOPK, FPS, WEIGHTED_SUM, NEIGHBOR_MAX,
-           WEIGHTED_SUM_BWD, NEIGHBOR_MAX_BWD)
+KERNELS = (KNN, KNN_TOPK, FPS, WEIGHTED_SUM, FLEX_MOMENTS, NEIGHBOR_MAX,
+           WEIGHTED_SUM_BWD, FLEX_MOMENTS_BWD, NEIGHBOR_MAX_BWD)
 
 
 def reset_counts() -> None:

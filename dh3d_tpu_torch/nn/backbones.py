@@ -81,7 +81,7 @@ class FlexConvDilate(nn.Module):
         for i in range(self.n_convs):
             x = getattr(self, f"flexconv_{i}")(x, points_s, knn.nbh, knn)
         if self.se is not None:
-            x_pool, _ = ops.flex_pool(x, knn.nbh, knn)
+            x_pool, _ = ops.flex_pool(x, knn.nbh, knn, with_arg=False)
             x = self.se(x, x_pool)
 
         if self.dilate > 1:
@@ -121,7 +121,7 @@ class BackboneLocalDilate(nn.Module):
         nn_8 = knn_ind[..., :8].contiguous()
         inv_8 = ops.NeighborInverse(nn_8, points.shape[1])
         init_f = self.initconv(points, nn_8, inv_8)
-        init_f, _ = ops.flex_pool(init_f, nn_8, inv_8)
+        init_f, _ = ops.flex_pool(init_f, nn_8, inv_8, with_arg=False)
         _, x1, _ = self.stage1(points, init_f, knn=inv_8)
         _, x2, cache = self.stage2(points, self.before_stage2_conv1d(x1))
         feat = self.local_stage1_shortcut(x1) + x2

@@ -4,9 +4,11 @@ Kernelled ops (CUDA kernel for CUDA tensors, plain PyTorch for CPU
 tensors): `knn` (and `knn_bruteforce`, `knn_bruteforce_pairwise`,
 `three_nn` on it; launch plan `knn_plan`), `farthest_point_sample` (launch
 plan `fps_plan`), `weighted_sum` (and
-`flex_conv`, `conv_pointset`, `three_interpolate` on it) with its backward
-`weighted_sum_backward`, `neighbor_max` (and `flex_pool`) with its backward
-`neighbor_max_backward`; `NeighborInverse` shares the CSR inverse those
+`conv_pointset`, `three_interpolate` on it) with its backward
+`weighted_sum_backward`, `flex_moments` (and `flex_conv` on it) with its
+backward `flex_moments_backward`, `neighbor_max` (and `flex_pool`) with its
+backward `neighbor_max_backward` (launch plan of the three forwards:
+`row_plan`); `NeighborInverse` shares the CSR inverse those
 backwards read among the ops over one neighbourhood.
 """
 
@@ -14,7 +16,6 @@ from dh3d_tpu_torch.ops.flex import (
     conv_pointset,
     flex_conv,
     flex_pool,
-    flex_weights,
     gather_neighbors,
 )
 from dh3d_tpu_torch.ops.interpolate import (
@@ -34,12 +35,17 @@ from dh3d_tpu_torch.ops.knn import (
 from dh3d_tpu_torch.ops.morton import morton_codes, morton_perm
 from dh3d_tpu_torch.ops.neighborhood import (
     NeighborInverse,
+    flex_moments,
+    flex_moments_backward,
+    flex_moments_plain,
+    flex_weights,
     inverse_neighbors,
     neighbor_max,
     neighbor_max_backward,
     neighbor_max_backward_plain,
     neighbor_max_plain,
     neighbor_max_with_slot,
+    row_plan,
     weighted_sum,
     weighted_sum_backward,
     weighted_sum_backward_plain,
@@ -54,14 +60,15 @@ from dh3d_tpu_torch.ops.sampling import (
 )
 
 __all__ = [
-    "NeighborInverse", "conv_pointset", "farthest_point_sample", "flex_conv", "flex_pool",
+    "NeighborInverse", "conv_pointset", "farthest_point_sample", "flex_conv",
+    "flex_moments", "flex_moments_backward", "flex_moments_plain", "flex_pool",
     "flex_weights", "fps_plain", "fps_plan", "gather_neighbors", "gather_point",
     "group_point", "inverse_distance_weights", "inverse_neighbors", "knn",
     "knn_bruteforce", "knn_bruteforce_pairwise", "knn_plain", "knn_plan",
     "knn_slabs",
     "morton_codes", "morton_perm", "neighbor_max", "neighbor_max_backward",
     "neighbor_max_backward_plain", "neighbor_max_plain",
-    "neighbor_max_with_slot", "subsample",
+    "neighbor_max_with_slot", "row_plan", "subsample",
     "three_interpolate", "three_nn", "weighted_sum", "weighted_sum_backward",
     "weighted_sum_backward_plain", "weighted_sum_plain",
 ]

@@ -8,7 +8,8 @@ flex_conv uses the moment identity of the JAX package: with neighbourhood
 N(n) (k = 0 is the centre n0) and delta_k = pos[nk] - pos[n0],
     out[n] = M[n] @ W,  M[n] = sum_k [1, delta_k] (outer) feat[nk],
     W = concat([bias[None], theta]).reshape((1 + Dp) * Din, Dout),
-so M is kernel C with P = 1 + Dp weights [1, delta] and a p-major output.
+so M is kernel C with P = 1 + Dp weights [1, delta] and a p-major output;
+`flex_moments` builds those weights inside the kernel from the positions.
 
 Every op takes an optional `inverse`, the `NeighborInverse` of its nbh,
 which its backward reads (`ops/neighborhood.py`).
@@ -19,6 +20,8 @@ from __future__ import annotations
 import torch
 
 from dh3d_tpu_torch.ops.neighborhood import (
+    flex_moments,
+    flex_weights,
     gather_neighbors,
     neighbor_max,
     weighted_sum,
@@ -28,13 +31,6 @@ __all__ = ["gather_neighbors", "flex_weights", "flex_conv", "flex_pool",
            "conv_pointset"]
 
 
-def flex_weights(positions: torch.Tensor, nbh: torch.Tensor) -> torch.Tensor:
-    """[B, N, K, 1 + Dp] weights [1, pos[nk] - pos[n0]] of the moments."""
-    p_k = gather_neighbors(positions, nbh)  # [B, N, K, Dp]
-    delta = p_k - p_k[:, :, :1]
-    return torch.cat([torch.ones_like(delta[..., :1]), delta], dim=-1)
-
-
 def flex_conv(features, positions, nbh, theta, bias, inverse=None):
     """Flex convolution (`flex_conv_kernel.cc:25-167`).
 
@@ -42,16 +38,18 @@ def flex_conv(features, positions, nbh, theta, bias, inverse=None):
     the centre at k = 0, theta [Dp, Din, Dout], bias [Din, Dout]
     -> [B, N, Dout]."""
     Dp, Din, Dout = theta.shape
-    m = weighted_sum(features, nbh, flex_weights(positions, nbh), inverse)
+    m = flex_moments(features, positions, nbh, inverse)
     w = torch.cat([bias[None], theta], dim=0).reshape((1 + Dp) * Din, Dout)
     return m @ w
 
 
-def flex_pool(features, nbh, inverse=None):
+def flex_pool(features, nbh, inverse=None, with_arg=True):
     """Max-pool over each neighbourhood (`flex_pool_kernel.cc:23-97`):
     features [B, M, C], nbh [B, N, K] -> (out [B, N, C], argmax [B, N, C]
-    int64 global point ids, the lowest k on ties)."""
-    return neighbor_max(features, nbh, inverse)
+    int64 global point ids, the lowest k on ties, the first NaN's when
+    there is one; None when `with_arg` is False, for callers that drop
+    it)."""
+    return neighbor_max(features, nbh, inverse, with_arg)
 
 
 def conv_pointset(features, nbh, theta, bias, inverse=None):

@@ -2,13 +2,18 @@
 (`csrc/neighborhood.cu`) and their plain versions.
 
   weighted_sum:  out[b, n, p*C + c] = sum_k w[b, n, k, p] * f[b, nbh[b, n, k], c]
+  flex_moments:  the same with w = `flex_weights(pos, nbh)` = [1, pos[nbh[.,
+                 k]] - pos[nbh[., 0]]], built inside the kernel: no weight
+                 tensor exists, and the output has `weighted_sum`'s bits
   neighbor_max:  val[b, n, c] = max_k f[b, nbh[b, n, k], c],
                  arg[b, n, c] = nbh[b, n, k*], k* the lowest k attaining it
+                 (a NaN wins over any number, the first NaN over the others)
 
-Both are `torch.autograd.Function`s (`WeightedSum`, `NeighborMax`).  The
-features get a gradient; the weights and the indices get none, as in the
-JAX VJPs (`banded_pallas.py:25-29`), which give the weights a zero
-cotangent and the positions none.  Their backwards are kernels too:
+All three are `torch.autograd.Function`s (`WeightedSum`, `FlexMoments`,
+`NeighborMax`).  The features get a gradient; the weights, the positions
+and the indices get none, as in the JAX VJPs (`banded_pallas.py:25-29`),
+which give the weights a zero cotangent and the positions none.  Their
+backwards are kernels too:
   E  weighted_sum_backward:  dfeat[b, j, c] =
        sum_{(n, k): nbh[b, n, k] = j} sum_p w[b, n, k, p] * dM[b, n, p*C + c]
   F  neighbor_max_backward:  dfeat[b, j, c] =
@@ -24,6 +29,10 @@ pool), so its inverse is built once and shared: the model makes one
 to every op over it; the Functions keep it on ctx, and its first `get()`
 in a backward builds the inverse for all of them.  An op given none makes
 its own holder, which only its backward reads.
+
+Kernels C and D take a launch plan, `row_plan(C, K)` = (VEC channels a
+thread, lanes a row, passes over the channels); `plan=` forces one, and the
+C entry points refuse a plan that does not fit C or the tensors' alignment.
 
 They replace the Pallas kernels of `dh3d_tpu/ops/pallas/banded_pallas.py`:
 `_fwd_kernel` and `_moments_fwd_kernel` (C), `_max_kernel` (D),
@@ -46,6 +55,8 @@ MAX_P = 4
 MAX_K = 64
 ENTRY_SHIFT = 6  # an inverse's entry is (n << 6) | k: exact for k < MAX_K
 MAX_ROWS = (1 << 25) - 1  # and int32 for n < 2^25
+UNROLLED_K = (3, 8)  # the K kernels C and D unroll (given >= K lanes a row)
+ROW_GATHERS = 64  # gathers a row group of kernels C and D aims at a pass
 
 
 def gather_neighbors(values: torch.Tensor, nbh: torch.Tensor) -> torch.Tensor:
@@ -114,13 +125,67 @@ def _check_inverse(inverse, nbh: torch.Tensor, M: int, name: str) -> None:
                          f"neighbourhood (m={inverse.m}; here M={M})")
 
 
+# ------------------------------ launch plans ------------------------------
+
+def row_plan(C: int, K: int, vec_max: int = 4) -> tuple[int, int, int]:
+    """The launch plan of kernels C and D for C channels and K neighbours:
+    (vec, lanes, passes).  A row group of `lanes` threads (a power of two,
+    at most 32) owns a query row; a thread owns `vec` adjacent channels
+    (4, 2 or 1: the largest that divides C and is at most `vec_max`, which
+    the wrappers lower to what the tensors' alignment allows), channel
+    (pass * lanes + lane) * vec onward in each of `passes` passes.
+
+    A row's ids and weights are loaded and shuffled once for all its
+    passes, so few lanes with several passes beat a lane a vector: about
+    `ROW_GATHERS` gathers a group and pass (lanes * K), at least 8 lanes
+    (measured on an H100: 8 lanes at K = 8, 16 at K = 3), fewer when C has
+    fewer vectors.  For the K the kernels unroll (`UNROLLED_K`) a group
+    needs K lanes to load the K ids in one go, so vec is halved while C
+    gives too few."""
+    if C < 1 or not 1 <= K <= MAX_K or vec_max not in (1, 2, 4):
+        raise ValueError(f"row_plan: C={C}, K={K} (<= {MAX_K}), "
+                         f"vec_max={vec_max}")
+    vec = next(v for v in (4, 2, 1) if v <= vec_max and C % v == 0)
+    while vec > 1 and K in UNROLLED_K and _lanes(C // vec) < K:
+        vec //= 2
+    lanes = min(_lanes(C // vec), max(8, _lanes(ROW_GATHERS // _lanes(K))))
+    return vec, lanes, -(-C // (vec * lanes))
+
+
+def _lanes(vectors: int) -> int:
+    """The power of two that holds `vectors`, at most 32."""
+    return min(32, 1 << (vectors - 1).bit_length())
+
+
+def _plan(plan, C, K, features):
+    """`plan`, or `row_plan` with the vector width the base of `features`
+    allows (the kernels' other vector accesses are to fresh outputs)."""
+    if plan is not None:
+        return tuple(plan)
+    vec_max = next(v for v in (4, 2, 1) if features.data_ptr() % (4 * v) == 0)
+    return row_plan(C, K, vec_max)
+
+
 # ------------------------------ kernel C / E ------------------------------
+
+def flex_weights(positions: torch.Tensor, nbh: torch.Tensor) -> torch.Tensor:
+    """[B, N, K, 1 + Dp] weights [1, pos[nk] - pos[n0]] of the moments."""
+    p_k = gather_neighbors(positions, nbh)  # [B, N, K, Dp]
+    delta = p_k - p_k[:, :, :1]
+    return torch.cat([torch.ones_like(delta[..., :1]), delta], dim=-1)
+
 
 def weighted_sum_plain(features, nbh, weights):
     """Plain PyTorch kernel C: a gather, then an einsum over k."""
     B, N, K, P = weights.shape
     f_k = gather_neighbors(features, nbh)
     return torch.einsum("bnkp,bnkc->bnpc", weights, f_k).reshape(B, N, -1)
+
+
+def flex_moments_plain(features, positions, nbh):
+    """Plain PyTorch `flex_moments`: kernel C's plain version on the
+    weights `flex_weights` builds."""
+    return weighted_sum_plain(features, nbh, flex_weights(positions, nbh))
 
 
 def weighted_sum_backward_plain(dm, nbh, weights, M):
@@ -136,16 +201,29 @@ def weighted_sum_backward_plain(dm, nbh, weights, M):
     return out.reshape(B, M, C)
 
 
-def _weighted_sum_forward(features, nbh, weights):
+def _weighted_sum_forward(features, nbh, weights, plan=None):
     if not kernels.on_cuda(features, nbh, weights):
         return weighted_sum_plain(features, nbh, weights)
+    return _launch_c(kernels.WEIGHTED_SUM, features, nbh, weights,
+                     weights.shape[-1], plan)
+
+
+def _flex_moments_forward(features, positions, nbh, plan=None):
+    if not kernels.on_cuda(features, positions, nbh):
+        return flex_moments_plain(features, positions, nbh)
+    return _launch_c(kernels.FLEX_MOMENTS, features, nbh, positions,
+                     1 + positions.shape[-1], plan)
+
+
+def _launch_c(kernel, features, nbh, w, P, plan):
+    """Kernel C on CUDA tensors; `w` is the weights or the positions."""
     B, M, C = features.shape
-    N, K, P = weights.shape[1:]
+    N, K = nbh.shape[1:]
     out = torch.empty(B, N, P * C, dtype=torch.float32,
                       device=features.device)
-    kernels.WEIGHTED_SUM.launch(
-        features.device, features.data_ptr(), nbh.data_ptr(),
-        weights.data_ptr(), out.data_ptr(), B, N, M, C, K, P)
+    kernel.launch(
+        features.device, features.data_ptr(), nbh.data_ptr(), w.data_ptr(),
+        out.data_ptr(), B, N, M, C, K, P, *_plan(plan, C, K, features))
     return out
 
 
@@ -192,26 +270,27 @@ class WeightedSum(torch.autograd.Function):
     """Kernel C forward, kernel E backward (plain versions on the CPU)."""
 
     @staticmethod
-    def forward(ctx, features, nbh, weights, inverse=None):
+    def forward(ctx, features, nbh, weights, inverse=None, plan=None):
         ctx.inverse = inverse or NeighborInverse(nbh, features.shape[1])
         ctx.save_for_backward(nbh, weights)
-        return _weighted_sum_forward(features, nbh, weights)
+        return _weighted_sum_forward(features, nbh, weights, plan)
 
     @staticmethod
     def backward(ctx, dout):
         # the forward checked the inputs and that `inverse` is nbh's (the
         # unpacked nbh may be another tensor object: saved-tensor hooks)
         if not ctx.needs_input_grad[0]:
-            return None, None, None, None
+            return (None,) * 5
         nbh, weights = ctx.saved_tensors
         return (_weighted_sum_backward(dout.contiguous(), nbh, weights,
                                        ctx.inverse),
-                None, None, None)
+                None, None, None, None)
 
 
 def weighted_sum(features: torch.Tensor, nbh: torch.Tensor,
                  weights: torch.Tensor,
-                 inverse: NeighborInverse | None = None) -> torch.Tensor:
+                 inverse: NeighborInverse | None = None,
+                 plan: tuple[int, int, int] | None = None) -> torch.Tensor:
     """features [B, M, C] f32, nbh [B, N, K] int64 in [0, M),
     weights [B, N, K, P] f32 (P <= 4, K <= 64), all contiguous
     -> [B, N, P*C] f32, p-major.  Differentiable in `features`; `inverse`
@@ -219,7 +298,7 @@ def weighted_sum(features: torch.Tensor, nbh: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch kernel C, which
     accumulates over k in ascending order in f32 (and kernel E in the
-    backward)."""
+    backward): the same bits whatever `plan` (default `row_plan`) is."""
     kernels.check(features, "features", torch.float32, (None, None, None))
     B = features.shape[0]
     kernels.check(nbh, "nbh", torch.int64, (B, None, None))
@@ -229,14 +308,100 @@ def weighted_sum(features: torch.Tensor, nbh: torch.Tensor,
     if not (1 <= P <= MAX_P and 1 <= K <= MAX_K):
         raise ValueError(f"weighted_sum: P={P} (<= {MAX_P}), K={K} (<= {MAX_K})")
     _check_inverse(inverse, nbh, features.shape[1], "weighted_sum")
-    return WeightedSum.apply(features, nbh, weights, inverse)
+    return WeightedSum.apply(features, nbh, weights, inverse, plan)
+
+
+def flex_moments_backward(dm: torch.Tensor, positions: torch.Tensor,
+                          nbh: torch.Tensor,
+                          inverse: NeighborInverse | None = None
+                          ) -> torch.Tensor:
+    """The transpose of `flex_moments` with respect to the features:
+    dm [B, N, (1 + Dp)*C] f32, positions [B, M, Dp] f32, nbh [B, N, K]
+    int64 in [0, M), contiguous -> dfeat [B, M, C] f32; the bits of
+    `weighted_sum_backward` on `flex_weights(positions, nbh)`.
+
+    CPU tensors take the plain version; CUDA tensors launch kernel E,
+    which builds each entry's weights from the positions."""
+    B, N, K = nbh.shape
+    kernels.check(nbh, "nbh", torch.int64, (B, N, K))
+    kernels.check(positions, "positions", torch.float32, (B, None, None))
+    kernels.check(dm, "dm", torch.float32, (B, N, None))
+    M, P = positions.shape[1], 1 + positions.shape[2]
+    if dm.shape[-1] % P or not (2 <= P <= MAX_P and 1 <= K <= MAX_K):
+        raise ValueError(f"flex_moments_backward: dm width {dm.shape[-1]}, "
+                         f"P={P} (2..{MAX_P}), K={K} (<= {MAX_K})")
+    _check_inverse(inverse, nbh, M, "flex_moments_backward")
+    return _flex_moments_backward(dm, positions, nbh,
+                                  inverse or NeighborInverse(nbh, M))
+
+
+def _flex_moments_backward(dm, positions, nbh, inverse):
+    M = inverse.m
+    if not kernels.on_cuda(dm, positions, nbh):
+        return weighted_sum_backward_plain(
+            dm, nbh, flex_weights(positions, nbh), M)
+    B, N, K = nbh.shape
+    P = 1 + positions.shape[-1]
+    C = dm.shape[-1] // P
+    rowptr, entries = inverse.get()
+    out = torch.empty(B, M, C, dtype=torch.float32, device=dm.device)
+    kernels.FLEX_MOMENTS_BWD.launch(
+        dm.device, dm.data_ptr(), positions.data_ptr(), nbh.data_ptr(),
+        rowptr.data_ptr(), entries.data_ptr(), out.data_ptr(), B, N, M, C,
+        K, P)
+    return out
+
+
+class FlexMoments(torch.autograd.Function):
+    """Kernel C on positions forward, kernel E on positions backward (plain
+    versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, features, positions, nbh, inverse=None, plan=None):
+        ctx.inverse = inverse or NeighborInverse(nbh, features.shape[1])
+        ctx.save_for_backward(nbh, positions)
+        return _flex_moments_forward(features, positions, nbh, plan)
+
+    @staticmethod
+    def backward(ctx, dout):
+        if not ctx.needs_input_grad[0]:  # checked in the forward, as above
+            return (None,) * 5
+        nbh, positions = ctx.saved_tensors
+        return (_flex_moments_backward(dout.contiguous(), positions, nbh,
+                                       ctx.inverse),
+                None, None, None, None)
+
+
+def flex_moments(features: torch.Tensor, positions: torch.Tensor,
+                 nbh: torch.Tensor, inverse: NeighborInverse | None = None,
+                 plan: tuple[int, int, int] | None = None) -> torch.Tensor:
+    """The flex-conv moments: features [B, M, C] f32, positions [B, M, Dp]
+    f32 (1 <= Dp <= 3), nbh [B, N, K] int64 in [0, M) with the centre at
+    k = 0 (K <= 64), all contiguous -> [B, N, (1 + Dp)*C] f32, p-major:
+    `weighted_sum(features, nbh, flex_weights(positions, nbh))` bit for bit,
+    without the weight tensor.  Differentiable in `features`; `inverse`
+    and `plan` as in `weighted_sum`.
+
+    CPU tensors take the plain version; CUDA tensors launch kernel C, which
+    builds the weights from the positions (and kernel E in the backward)."""
+    kernels.check(features, "features", torch.float32, (None, None, None))
+    B, M = features.shape[:2]
+    kernels.check(positions, "positions", torch.float32, (B, M, None))
+    kernels.check(nbh, "nbh", torch.int64, (B, None, None))
+    P, K = 1 + positions.shape[-1], nbh.shape[-1]
+    if not (2 <= P <= MAX_P and 1 <= K <= MAX_K):
+        raise ValueError(f"flex_moments: P={P} (2..{MAX_P}), K={K} "
+                         f"(<= {MAX_K})")
+    _check_inverse(inverse, nbh, M, "flex_moments")
+    return FlexMoments.apply(features, positions, nbh, inverse, plan)
 
 
 # ------------------------------ kernel D / F ------------------------------
 
 def neighbor_max_plain(features, nbh):
     """Plain PyTorch kernel D: a gather, then argmax over k (first
-    occurrence) and the values, ids and slots it selects.  Returns
+    occurrence; a NaN counts as the greatest value, so the first NaN) and
+    the values, ids and slots it selects.  Returns
     (val [B, N, C], arg [B, N, C] int64, slot [B, N, C] int8)."""
     f_k = gather_neighbors(features, nbh)  # [B, N, K, C]
     arg_k = torch.argmax(f_k, dim=2, keepdim=True)  # [B, N, 1, C]
@@ -263,29 +428,38 @@ def _check_neighbor_max(features, nbh):
         raise ValueError(f"neighbor_max: K={K} outside [1, {MAX_K}]")
 
 
-def _neighbor_max_forward(features, nbh, with_slot):
+def _neighbor_max_forward(features, nbh, with_slot, with_arg=True,
+                          plan=None):
+    """(val, arg or None, slot or None): kernel D writes only the outputs
+    asked for."""
     if not kernels.on_cuda(features, nbh):
         val, arg, slot = neighbor_max_plain(features, nbh)
-        return val, arg, (slot if with_slot else None)
+        return (val, arg if with_arg else None, slot if with_slot else None)
     B, M, C = features.shape
     N, K = nbh.shape[1:]
-    val = torch.empty(B, N, C, dtype=torch.float32, device=features.device)
-    arg = torch.empty(B, N, C, dtype=torch.int64, device=features.device)
-    slot = (torch.empty(B, N, C, dtype=torch.int8, device=features.device)
+    dev = features.device
+    val = torch.empty(B, N, C, dtype=torch.float32, device=dev)
+    arg = (torch.empty(B, N, C, dtype=torch.int64, device=dev)
+           if with_arg else None)
+    slot = (torch.empty(B, N, C, dtype=torch.int8, device=dev)
             if with_slot else None)
     kernels.NEIGHBOR_MAX.launch(
-        features.device, features.data_ptr(), nbh.data_ptr(),
-        val.data_ptr(), arg.data_ptr(), slot.data_ptr() if with_slot else None,
-        B, N, M, C, K)
+        dev, features.data_ptr(), nbh.data_ptr(), val.data_ptr(),
+        arg.data_ptr() if with_arg else None,
+        slot.data_ptr() if with_slot else None, B, N, M, C, K,
+        *_plan(plan, C, K, features))
     return val, arg, slot
 
 
-def neighbor_max_with_slot(features: torch.Tensor, nbh: torch.Tensor):
+def neighbor_max_with_slot(features: torch.Tensor, nbh: torch.Tensor,
+                           with_arg: bool = True,
+                           plan: tuple[int, int, int] | None = None):
     """Kernel D with its slot output, no autograd: features [B, M, C] f32,
-    nbh [B, N, K] int64 (K <= 64) -> (val, arg int64, slot int8), each
-    [B, N, C].  CPU tensors take the plain version."""
+    nbh [B, N, K] int64 (K <= 64) -> (val, arg int64 or None when
+    `with_arg` is False, slot int8), each [B, N, C].  CPU tensors take the
+    plain version."""
     _check_neighbor_max(features, nbh)
-    return _neighbor_max_forward(features, nbh, True)
+    return _neighbor_max_forward(features, nbh, True, with_arg, plan)
 
 
 def neighbor_max_backward(dval: torch.Tensor, nbh: torch.Tensor,
@@ -331,10 +505,12 @@ class NeighborMax(torch.autograd.Function):
     differentiable."""
 
     @staticmethod
-    def forward(ctx, features, nbh, inverse=None):
+    def forward(ctx, features, nbh, inverse=None, with_arg=True, plan=None):
         need = ctx.needs_input_grad[0]
-        val, arg, slot = _neighbor_max_forward(features, nbh, need)
-        ctx.mark_non_differentiable(arg)
+        val, arg, slot = _neighbor_max_forward(features, nbh, need, with_arg,
+                                               plan)
+        if with_arg:
+            ctx.mark_non_differentiable(arg)
         ctx.inverse = inverse or NeighborInverse(nbh, features.shape[1])
         if need:
             ctx.save_for_backward(nbh, slot)
@@ -343,23 +519,34 @@ class NeighborMax(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dval, _darg):
         if not ctx.needs_input_grad[0]:
-            return None, None, None
+            return (None,) * 5
         nbh, slot = ctx.saved_tensors  # checked in the forward, as above
         return (_neighbor_max_backward(dval.contiguous(), nbh, slot,
                                        ctx.inverse),
-                None, None)
+                None, None, None, None)
 
 
 def neighbor_max(features: torch.Tensor, nbh: torch.Tensor,
-                 inverse: NeighborInverse | None = None):
+                 inverse: NeighborInverse | None = None,
+                 with_arg: bool = True,
+                 plan: tuple[int, int, int] | None = None):
     """features [B, M, C] f32, nbh [B, N, K] int64 in [0, M) (K <= 64),
-    contiguous -> (val [B, N, C] f32, arg [B, N, C] int64 global ids).
-    Ties keep the lowest k (`flex_pool_kernel.cc:44-49`).  `val` is
-    differentiable in `features`; `inverse` (a `NeighborInverse(nbh, M)`)
-    is what the backward reads.
+    contiguous -> (val [B, N, C] f32, arg [B, N, C] int64 global ids, or
+    None when `with_arg` is False: the ids are then not computed).
+
+    The winner of a neighbourhood is `torch.argmax`'s and `jnp.argmax`'s:
+    a candidate replaces the best so far when it is greater (strict: ties
+    keep the lowest k, `flex_pool_kernel.cc:44-49`) or when it is NaN and
+    the best so far is not.  So a NaN among the neighbours gives val NaN
+    and the id of the first NaN in k order, and the backward sends the
+    cotangent to that row; +inf and -inf are ordinary values.
+
+    `val` is differentiable in `features`; `inverse` (a
+    `NeighborInverse(nbh, M)`) is what the backward reads; `plan` forces a
+    launch plan (default `row_plan`).
 
     CPU tensors take the plain version; CUDA tensors launch kernel D (and
     kernel F in the backward)."""
     _check_neighbor_max(features, nbh)
     _check_inverse(inverse, nbh, features.shape[1], "neighbor_max")
-    return NeighborMax.apply(features, nbh, inverse)
+    return NeighborMax.apply(features, nbh, inverse, with_arg, plan)

@@ -13,9 +13,12 @@ eval's sizes.  Kernels A and B also run at every launch plan they take
 kNN (kernels A and G) and FPS must equal their plain versions exactly
 (both build d2 from the same rounded terms), at every plan and on a
 second run;
-neighbour max and its slot exactly; weighted sums and both backwards to
-1e-5 relative (FMA accumulation in the kernels, batched matmuls and
-atomic scatters in the plain versions).  The backwards also run at the
+neighbour max, its ids and its slot exactly, NaNs included, at every
+launch plan (`plan=`: channels a thread, lanes a row, passes); weighted
+sums at every plan and both backwards to 1e-5 relative (FMA accumulation
+in the kernels, batched matmuls and atomic scatters in the plain
+versions), and every plan of a weighted sum gives the same bits, which
+are also `flex_moments`' on the positions.  The backwards also run at the
 train step's own shapes, where they must give the same bits with the CSR
 inverse shared and built in the call, and on a second run.  The
 train step on the card is held to the CPU's as `chip_smoke.py` phase 7
@@ -258,6 +261,190 @@ def test_neighbor_max_equals_plain(device, C):
     assert slot.dtype == torch.int8 and torch.equal(slot, pslot)
 
 
+def row_plans(C, K):
+    """`row_plan`'s plan and every other plan the entry points take for C
+    channels: each vector width that divides C at every group size."""
+    plans = {T.row_plan(C, K)}
+    for vec in (1, 2, 4):
+        if C % vec == 0:
+            plans |= {(vec, lanes, -(-C // (vec * lanes)))
+                      for lanes in (1, 2, 4, 8, 16, 32)}
+    return sorted(plans)
+
+
+def same_max(val, ref):
+    """Bit for bit, NaN positions compared with isnan."""
+    nan = ref.isnan()
+    return torch.equal(val.isnan(), nan) and torch.equal(val[~nan], ref[~nan])
+
+
+# C at the forward's shapes in small, and at odd ones: (P, C, rows, keys, K)
+WSUM_SHAPES = [(4, 64, N, N, 8), (4, 32, N, N, 8), (4, 128, M, M, 8),
+               (1, 256, N, M, 3), (1, 128, N, M, 3), (1, 3, N, N, 8),
+               (2, 33, N, N, 16), (3, 6, 200, M, 5), (4, 16, M, M, 8),
+               (4, 8, 50, 50, 64)]
+
+
+@pytest.mark.parametrize("P,C,rows,keys_n,k", WSUM_SHAPES)
+def test_weighted_sum_every_plan(device, P, C, rows, keys_n, k):
+    """Kernel C on random (non-banded) ids at every plan: within 1e-5 of
+    the plain version, the same bits at every plan and on a second run;
+    `flex_moments` on positions gives the bits of `weighted_sum` on
+    `flex_weights`, at every plan."""
+    g = torch.Generator().manual_seed(P * 1000 + C)
+    feat = torch.randn(B, keys_n, C, generator=g).to(device)
+    nbh = torch.randint(0, keys_n, (B, rows, k), generator=g).to(device)
+    w = torch.randn(B, rows, k, P, generator=g).to(device)
+    ref = T.weighted_sum_plain(feat, nbh, w)
+    first = T.weighted_sum(feat, nbh, w)
+    for plan in row_plans(C, k):
+        out = _counted(kernels.WEIGHTED_SUM, T.weighted_sum, feat, nbh, w,
+                       plan=plan)
+        _close(out, ref)
+        assert torch.equal(out, first), plan
+    if P == 1:
+        return
+    pos = (torch.randn(B, keys_n, P - 1, generator=g) * 30).to(device)
+    want = T.weighted_sum(feat, nbh, T.flex_weights(pos, nbh))
+    _close(want, T.flex_moments_plain(feat, pos, nbh))
+    for plan in row_plans(C, k):
+        got = _counted(kernels.FLEX_MOMENTS, T.flex_moments, feat, pos, nbh,
+                       plan=plan)
+        assert torch.equal(got, want), plan
+
+
+def test_flex_moments_backward_is_weighted_sum_backward(device):
+    """Kernel E with the weights built from the positions: the bits of E on
+    `flex_weights`, through the op and through autograd."""
+    g = torch.Generator().manual_seed(5)
+    for P, C, rows, keys_n, k in ((4, 64, N, N, 8), (4, 128, M, M, 8),
+                                  (3, 33, 200, M, 5), (2, 6, N, N, 16)):
+        pos = (torch.randn(B, keys_n, P - 1, generator=g) * 30).to(device)
+        nbh = torch.randint(0, keys_n, (B, rows, k), generator=g).to(device)
+        dm = torch.randn(B, rows, P * C, generator=g).to(device)
+        want = T.weighted_sum_backward(dm, nbh, T.flex_weights(pos, nbh),
+                                       keys_n)
+        got = _counted(kernels.FLEX_MOMENTS_BWD, T.flex_moments_backward, dm,
+                       pos, nbh)
+        assert torch.equal(got, want), (P, C)
+        feat = torch.randn(B, keys_n, C, generator=g).to(device)
+        feat.requires_grad_()
+        T.flex_moments(feat, pos, nbh).backward(dm)
+        assert torch.equal(feat.grad, want), (P, C)
+
+
+def misaligned(t):
+    """A contiguous copy of `t` whose base is 4 bytes off a 16-byte line."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 8 == 4 and out.is_contiguous()
+    return out
+
+
+def test_misaligned_features_fall_to_one_channel_a_thread(device):
+    """Features whose base is not a multiple of 8 bytes: the default plan
+    falls to VEC = 1 and agrees; a forced VEC = 2 or 4 is refused."""
+    g = torch.Generator().manual_seed(9)
+    feat = torch.randn(B, M, 64, generator=g).to(device)
+    nbh = torch.randint(0, M, (B, N, 8), generator=g).to(device)
+    w = torch.randn(B, N, 8, 4, generator=g).to(device)
+    off = misaligned(feat)
+    assert torch.equal(T.weighted_sum(off, nbh, w),
+                       T.weighted_sum(feat, nbh, w))
+    val, arg, slot = T.neighbor_max_with_slot(off, nbh)
+    ref = T.neighbor_max_plain(feat, nbh)
+    assert all(torch.equal(a, b) for a, b in zip((val, arg, slot), ref))
+    for plan in ((4, 16, 1), (2, 32, 1)):
+        with pytest.raises(ValueError, match="invalid argument"):
+            T.weighted_sum(off, nbh, w, plan=plan)
+        with pytest.raises(ValueError, match="invalid argument"):
+            T.neighbor_max(off, nbh, plan=plan)
+
+
+def test_row_kernels_refuse_a_plan_that_does_not_fit(device):
+    """A vector width that does not divide C, a group that is no power of
+    two or wider than a warp, a wrong pass count: ValueError, no launch."""
+    feat = torch.randn(B, M, 66, device=device)
+    nbh = torch.randint(0, M, (B, N, 8), device=device)
+    w = torch.randn(B, N, 8, 4, device=device)
+    before = kernels.counts()
+    for plan in ((4, 32, 1), (3, 32, 1), (2, 12, 3), (2, 64, 1), (2, 32, 1),
+                 (2, 32, 3), (1, 0, 1)):
+        with pytest.raises(ValueError, match="invalid argument"):
+            T.weighted_sum(feat, nbh, w, plan=plan)
+        with pytest.raises(ValueError, match="invalid argument"):
+            T.flex_moments(feat, feat[..., :3].contiguous(), nbh, plan=plan)
+        with pytest.raises(ValueError, match="invalid argument"):
+            T.neighbor_max(feat, nbh, plan=plan)
+    assert kernels.counts() == before
+
+
+# D at the forward's shapes in small, and at odd ones: (C, rows, keys, K)
+MAX_SHAPES = [(64, N, N, 8), (32, N, N, 8), (128, M, M, 8), (3, N, N, 8),
+              (130, N, M, 8), (33, 200, M, 16), (16, M, M, 8), (6, N, N, 1)]
+
+
+@pytest.mark.parametrize("kind", ["ties", "normal", "nan"])
+@pytest.mark.parametrize("C,rows,keys_n,k", MAX_SHAPES)
+def test_neighbor_max_every_plan(device, C, rows, keys_n, k, kind):
+    """Kernel D on random ids at every plan, with and without the ids and
+    the slot: value, ids and slot equal the plain version bit for bit, on
+    integer features (most maxima tie), on normal ones, and on features
+    with 10% NaN, 5% +inf and 5% -inf (the first NaN wins); twice."""
+    g = torch.Generator().manual_seed(C + len(kind))
+    if kind == "ties":
+        feat = torch.randint(0, 4, (B, keys_n, C), generator=g).float()
+    else:
+        feat = torch.randn(B, keys_n, C, generator=g)
+    if kind == "nan":
+        u = torch.rand(B, keys_n, C, generator=g)
+        feat[u < 0.10] = float("nan")
+        feat[(u >= 0.10) & (u < 0.15)] = float("inf")
+        feat[(u >= 0.15) & (u < 0.20)] = float("-inf")
+    feat = feat.to(device)
+    nbh = torch.randint(0, keys_n, (B, rows, k), generator=g).to(device)
+    pval, parg, pslot = T.neighbor_max_plain(feat, nbh)
+    assert (kind == "nan") == bool(pval.isnan().any())
+    for plan in row_plans(C, k):
+        for with_arg in (True, False):
+            val, arg = _counted(kernels.NEIGHBOR_MAX, T.neighbor_max, feat,
+                                nbh, with_arg=with_arg, plan=plan)
+            assert same_max(val, pval), plan
+            assert torch.equal(arg, parg) if with_arg else arg is None
+            val, arg, slot = _counted(
+                kernels.NEIGHBOR_MAX, T.neighbor_max_with_slot, feat, nbh,
+                with_arg=with_arg, plan=plan)
+            assert same_max(val, pval), plan
+            assert torch.equal(arg, parg) if with_arg else arg is None
+            assert slot.dtype == torch.int8 and torch.equal(slot, pslot)
+
+
+@pytest.mark.parametrize("nan_slot", [0, 1, K - 1])
+def test_neighbor_max_nan_routes_the_backward(device, nan_slot):
+    """One NaN a neighbourhood, at slot 0, 1 or K-1, +inf beside it: D
+    returns NaN with that slot's id, and F sends the cotangent there."""
+    g = torch.Generator().manual_seed(nan_slot)
+    nbh = torch.stack([torch.randperm(N, generator=g)[:K]
+                       for _ in range(200)])[None].to(device)
+    feat = torch.randn(1, N, 64, generator=g)
+    clean = torch.ones(N, dtype=torch.bool)
+    for n in range(0, 200, 7):  # rows whose neighbours are still clean
+        ids = nbh[0, n].cpu()
+        if clean[ids].all():
+            feat[0, ids[nan_slot]] = float("nan")
+            feat[0, ids[(nan_slot + 1) % K]] = float("inf")
+            clean[ids] = False
+    feat = feat.to(device).requires_grad_()
+    val, arg = T.neighbor_max(feat, nbh)
+    pval, parg, pslot = T.neighbor_max_plain(feat.detach(), nbh)
+    assert pval.isnan().any() and same_max(val.detach(), pval)
+    assert torch.equal(arg, parg)
+    dval = torch.randn(1, 200, 64, generator=g).to(device)
+    val.backward(dval)
+    _close(feat.grad, T.neighbor_max_backward_plain(dval, nbh, pslot, N))
+
+
 def test_conv_pointset_and_flex_conv_on_card(cloud):
     nbh, _ = T.knn_bruteforce(cloud, K)
     theta = torch.randn(3, 32, device=cloud.device)
@@ -439,8 +626,9 @@ def test_inverse_on_card_equals_cpu(train_level):
 
 
 def test_train_step_builds_each_inverse_once(device, monkeypatch):
-    """One detection_config step at [2, 8192]: kernel E runs 5 times and F
-    3 times over 3 neighbourhoods, whose inverses are built once each."""
+    """One detection_config step at [2, 8192]: kernel E runs 5 times (4 on
+    positions, 1 on weights) and F 3 times over 3 neighbourhoods, whose
+    inverses are built once each."""
     from dh3d_tpu_torch import config as cfglib
     from dh3d_tpu_torch.ops import neighborhood
     from dh3d_tpu_torch.train import (forward_loss, init_state,
@@ -459,6 +647,12 @@ def test_train_step_builds_each_inverse_once(device, monkeypatch):
     total, _, _ = forward_loss(state.model, cfg, to_device(batch, device))
     total.backward()
     torch.cuda.synchronize()
-    assert kernels.WEIGHTED_SUM_BWD.launches == 5
+    # E: 4 flex convs on positions, the upsample on weights; C likewise,
+    # and initconv on raw xyz (forward only)
+    assert kernels.FLEX_MOMENTS_BWD.launches == 4
+    assert kernels.WEIGHTED_SUM_BWD.launches == 1
     assert kernels.NEIGHBOR_MAX_BWD.launches == 3
+    assert kernels.FLEX_MOMENTS.launches == 4
+    assert kernels.WEIGHTED_SUM.launches == 2
+    assert kernels.NEIGHBOR_MAX.launches == 3
     assert len(built) == 3 and len({id(t) for t in built}) == 3

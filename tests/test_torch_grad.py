@@ -1,8 +1,8 @@
 """The backwards of the PyTorch port's kernelled ops against the JAX
 package's VJPs, on the CPU.
 
-On the CPU the port's `WeightedSum` and `NeighborMax` Functions run their
-plain forward and plain backward (`weighted_sum_backward_plain`,
+On the CPU the port's `WeightedSum`, `FlexMoments` and `NeighborMax`
+Functions run their plain forward and plain backward (`weighted_sum_backward_plain`,
 `neighbor_max_backward_plain`): the functions kernels E and F are held to
 on the card (`tests/test_torch_cuda.py`, `chip_smoke.py`).  Here the same
 numpy inputs and cotangents go through
@@ -280,7 +280,7 @@ def test_kernelled_ops_carry_a_graph(rng, cloud, knn8):
     th = torch.zeros(3, 8, 4, requires_grad=True)
     out = T.flex_conv(feat, _t(cloud), _t(knn8), th, torch.zeros(8, 4))
     assert out.requires_grad
-    assert "WeightedSumBackward" in _graph_nodes(out)
+    assert "FlexMomentsBackward" in _graph_nodes(out)
     out = T.conv_pointset(feat, _t(knn8), torch.zeros(8, 4), torch.zeros(4))
     assert "WeightedSumBackward" in _graph_nodes(out)
     val, arg = T.flex_pool(feat, _t(knn8))

@@ -179,8 +179,8 @@ def test_backward_with_and_without_inverse():
 
 @pytest.mark.parametrize("cfg_name", ["detection_config", "global_config"])
 def test_model_shares_one_inverse_per_neighbourhood(count_builds, cfg_name):
-    """Every WeightedSum and NeighborMax node of a train-mode forward
-    holds the inverse of its own neighbourhood, one object for each of the
+    """Every WeightedSum, FlexMoments and NeighborMax node of a train-mode
+    forward holds the inverse of its own neighbourhood, one object for each of the
     three neighbourhoods (kNN at N, kNN at N/8, the 3-NN map); asking every
     node for its inverse, as the card's backward does, builds three."""
     from dh3d_tpu_torch import config as cfglib
@@ -200,14 +200,17 @@ def test_model_shares_one_inverse_per_neighbourhood(count_builds, cfg_name):
         if fn is None or fn in seen:
             continue
         seen.add(fn)
-        if type(fn).__name__ in ("WeightedSumBackward", "NeighborMaxBackward"):
+        if type(fn).__name__ in ("WeightedSumBackward", "FlexMomentsBackward",
+                                 "NeighborMaxBackward"):
             nodes.append(fn)
         todo.extend(f for f, _ in fn.next_functions)
     names = sorted(type(fn).__name__ for fn in nodes)
     # detection: 4 flex convs + upsample, 3 pools; global adds its stage's
     # flex conv and upsample over stage 2's neighbourhoods
-    n_sum = 5 if cfg_name == "detection_config" else 7
-    assert names == ["NeighborMaxBackward"] * 3 + ["WeightedSumBackward"] * n_sum
+    more = 0 if cfg_name == "detection_config" else 1
+    assert names == (["FlexMomentsBackward"] * (4 + more)
+                     + ["NeighborMaxBackward"] * 3
+                     + ["WeightedSumBackward"] * (1 + more))
     inverses = {id(fn.inverse): fn.inverse for fn in nodes}
     assert len(inverses) == 3
     for fn in nodes:

@@ -376,9 +376,12 @@ def test_cpu_path_never_builds_or_counts(cloud, knn8):
     T.conv_pointset(_t(cloud), _t(knn8), torch.ones(3, 2), torch.zeros(2))
     f = _t(cloud).requires_grad_()
     T.flex_pool(f, _t(knn8))[0].sum().backward()  # kernel F's plain version
+    T.flex_moments(f, _t(cloud), _t(knn8)).sum().backward()  # C and E on pos
     assert kernels.counts() == {"knn": 0, "knn_topk": 0, "fps": 0,
-                                "weighted_sum": 0, "neighbor_max": 0,
+                                "weighted_sum": 0, "flex_moments": 0,
+                                "neighbor_max": 0,
                                 "weighted_sum_backward": 0,
+                                "flex_moments_backward": 0,
                                 "neighbor_max_backward": 0}
     assert kernels._library is None
     path = kernels.library_path()
