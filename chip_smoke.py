@@ -29,14 +29,21 @@ result line:
      built in the call (`ms_fresh_inverse`, bounded by nbh's), and must
      give the same bits both ways and on a second run; E at P = 4 both on
      the weight tensor and on the positions (the same bits); the inverse's
-     build is timed alone.  Kernels A and B run at every shape of the path
-     (`knn_fps_cases`: the forward's, the train step's and the
-     extraction's), each with the plan it took; beside A's bound its
-     instruction floor (the 7 instructions every pair issues in its x-y
-     test, over 128 lanes of every SM at the SM clock `nvidia-smi` reads
-     under load), beside B's its chain floor (the fastest time an iteration
-     of any plan at [20,1024]->1024, times m - 1); kernel G at the
-     detection loss's k=16 shape as a yardstick beside A.
+     build is timed alone.  Kernels A, G and B run at every shape of the
+     path (`knn_fps_cases`: the forward's, the train step's and the
+     extraction's; A the 3-NN, G every k >= 8, and keypoint NMS's self
+     k=50 on the loader-order and the Morton-sorted lidar cloud, on an
+     undersized scan the loader pads with 1e5 sentinels (also at k=8), at
+     the dso size, across clouds and at k=33 and 128), each with the plan
+     it took.  A kNN's bound counts its bytes and the d2 of the pairs it
+     returns.  Beside A's bound its instruction floor (the 7 instructions
+     every pair issues in its full scan's x-y test, over 128 lanes of every
+     SM at the SM clock `nvidia-smi` reads under load), beside G's the same
+     for all its pairs (`scan_floor_ms`: a full scan's best, which G's
+     pruning takes it under; not a bound), G's pre-pass alone
+     (`prepass_ms`) and, at each A shape, G forced to its plan (`g_ms`);
+     beside B's its chain floor (the fastest time an iteration of any plan
+     at [20,1024]->1024, times m - 1).
   4. the main-path forward (`dh3d_tpu_torch.entry.entry`) at [20, 8192]:
      every forward kernel's launch count over that one forward must be > 0;
      the outputs must be finite, of the model's shapes, with unit-norm
@@ -86,10 +93,10 @@ change, change, parent, in one call):
 The first imports `dh3d_tpu_torch` from DIR (a checkout, or a tree unpacked
 there with `git archive`; it needs `ops.inverse_neighbors` and the kernel
 launch counts) and writes OUT/ab_NAME.json (OUT defaults to `chiprun_out`
-beside this script): for every case of `knn_fps_cases` (the tree's own
-plans), of `forward_cases` (C and D as the tree's path calls them: a tree
-from before `flex_moments` builds the weight tensor first, and that build
-is also timed alone) and of `backward_cases`, the output's sha256 and its
+beside this script): for every case of `knn_fps_cases` (A, G and B with
+the tree's own plans), of `forward_cases` (C and D as the tree's path
+calls them: a tree from before `flex_moments` builds the weight tensor
+first, and that build is also timed alone) and of `backward_cases`, the output's sha256 and its
 device time (E and F called without an inverse: the tree's own route, which builds the
 inverse in the call, as the parent of the shared inverse did on its path;
 and the build alone); one full-width forward and one batch-1 extraction
@@ -104,11 +111,13 @@ trees have) and prints the times side by side.
 
     python3 chip_smoke.py --sweep [--out OUT]
 
-times every plan kernels A and B take at each shape of `knn_fps_cases`,
-each output checked equal to the plain version, and kernels C and D at
-each shape of `forward_cases` at 8, 16 and 32 lanes a row, each output
-checked equal to the path's, into OUT/sweep.json: the measurements
-`knn_plan`, `fps_plan` and `row_plan` were chosen from.
+times every plan kernels G and B take at each shape of `knn_fps_cases`
+(A, and both plans of G, at A's shapes), each output checked equal to the
+plain version, and kernels C and D at each shape of `forward_cases` at 8,
+16 and 32 lanes a row, each output checked equal to the path's, into
+OUT/sweep.json: the measurements `topk_plan`, the line `knn` draws
+between A and G (`ops.knn.MAX_K`), `fps_plan` and `row_plan` were chosen
+from.
 """
 
 from __future__ import annotations
@@ -150,10 +159,12 @@ TRAIN_GRAD_REL = 1e-3
 
 BANDED = "dh3d_tpu/ops/pallas/banded_pallas.py"
 REPLACES = {
-    "knn": ("dh3d_tpu/ops/pallas/knn_pallas.py:34",
-            ["dh3d_tpu/ops/pallas/knn_pallas.py:149",
-             "dh3d_tpu/ops/pallas/knn_pallas.py:112"]),
-    "knn_topk": ("dh3d_tpu/ops/pallas/knn_pallas.py:259", []),
+    # A: the banded 3-NN; G: the slab kNN, and the packed and exact
+    # kernels' shapes from k = 8 up (A keeps them below)
+    "knn": ("dh3d_tpu/ops/pallas/knn_pallas.py:149", []),
+    "knn_topk": ("dh3d_tpu/ops/pallas/knn_pallas.py:259",
+                 ["dh3d_tpu/ops/pallas/knn_pallas.py:34",
+                  "dh3d_tpu/ops/pallas/knn_pallas.py:112"]),
     "fps": ("dh3d_tpu/ops/pallas/fps_pallas.py:31", []),
     "weighted_sum": (f"{BANDED}:77", [f"{BANDED}:1294"]),
     "flex_moments": (f"{BANDED}:432", [f"{BANDED}:1294"]),
@@ -186,13 +197,13 @@ KNN_FLOOR_INSTRUCTIONS_PER_PAIR = 7
 # Kernel B's plans timed at [20,1024]->1024 for its chain floor
 CHAIN_FLOOR_PLANS = ((1, 128), (1, 256), (1, 1024), (2, 128), (4, 128),
                      (8, 128))
-# the forward (phase 4) runs A-D (C through both its entry points: on
-# weights and, for the flex-conv moments, on positions); the train step
-# (phase 6) A-F (E likewise); the local extraction with NMS (phase 8) A-D
-# and G
-FORWARD_KERNELS = ("knn", "fps", "weighted_sum", "flex_moments",
+# the forward (phase 4) runs A-D and G (A the 3-NN, G the self kNN k=8;
+# C through both its entry points: on weights and,
+# for the flex-conv moments, on positions); the train step (phase 6) A-G
+# (E likewise); the local extraction with NMS (phase 8) A-D and G
+FORWARD_KERNELS = ("knn", "knn_topk", "fps", "weighted_sum", "flex_moments",
                    "neighbor_max")
-EXTRACT_KERNELS = FORWARD_KERNELS + ("knn_topk",)
+EXTRACT_KERNELS = FORWARD_KERNELS
 TRAIN_KERNELS = FORWARD_KERNELS + ("weighted_sum_backward",
                                    "flex_moments_backward",
                                    "neighbor_max_backward")
@@ -474,27 +485,37 @@ def forward_cases(torch, T, device):
 
 
 def plan_of(T, name, *shape):
-    """The tree's own plan for a case: `knn_plan` / `fps_plan` where the
-    tree has them (None on a tree from before the plans)."""
-    fn = getattr(T, "knn_plan" if name == "knn" else "fps_plan", None)
+    """The tree's own plan for a case: G's `topk_plan(k)` (its merge), A's
+    `knn_plan` (its key slabs, on a tree from before A lost them), B's
+    `fps_plan`; None where the tree has no such plan."""
+    fn = getattr(T, {"knn": "knn_plan", "knn_topk": "topk_plan"}.get(
+        name, "fps_plan"), None)
     if fn is None:
         return None
     from dh3d_tpu_torch import kernels
 
+    if name == "knn_topk":
+        return fn(shape[-1])
     plan = fn(*shape, kernels.sm_count(0))
     return list(plan) if isinstance(plan, tuple) else plan
 
 
 def knn_fps_cases(torch, T, device):
-    """Kernels A and B at every shape of the path, on seeded inputs that
+    """Kernels A, G and B at every shape of the path, on seeded inputs that
     are the same on every tree of the port.  One dict a case: `name` (the
-    kernel), `label`; `call`, the op as the path calls it (the tree's own
-    plan, `plan`: A's key slabs, B's (blocks a cloud, threads a block));
-    `plain`; `forced(plan)`, the op with a given plan (a tree with plans);
-    `plans`, every plan to sweep; `inputs` (for the bound and the hash);
-    `ops`, f32 operations; A: `pairs`; B: `m`.  B at [20,1024]->1024 is
-    almost all barrier and reduction: the fastest of its plans gives the
-    chain floor (`chain_plans`)."""
+    kernel the path takes: A up to k = 7, G from k = 8; a tree from before
+    G took k = 8-32 runs A there, which is how `--ab-root` times G against
+    A), `label`; `call`, the op as the path calls it (the tree's own plan,
+    `plan`: G's merge, B's (blocks a cloud, threads a block)); `plain`;
+    `forced(plan)`, the op with a given plan and `plans`, every plan to
+    sweep (G and B on a tree with plans); `inputs` (for the bound and the
+    hash); `ops`, f32 operations (kNN: the 8 of the d2 of each pair it
+    returns, which any exact search computes; B: 9 a point an
+    iteration); A and G: `pairs` (all query-key pairs, for a full scan's
+    instruction floor); G: `prepass()`, its pre-pass alone (a tree with
+    it); A: `g_forced(plan)` and `g_plan`, G at A's shape; B: `m`.  B at
+    [20,1024]->1024 is almost all barrier and reduction: the fastest of its
+    plans gives the chain floor (`chain_plans`)."""
     pts, sub, _, _, _ = train_geometry(torch, T, device)
     B, N = pts.shape[:2]
     M = sub.shape[1]
@@ -502,28 +523,62 @@ def knn_fps_cases(torch, T, device):
     perm, _ = T.morton_perm(lidar)  # the extraction forward's order
     lidar_m = torch.gather(lidar, 1, perm[..., None].expand(-1, -1, 3))
     lidar_m = lidar_m.contiguous()
+    lidar_sub = T.gather_point(lidar_m, torch.sort(
+        T.farthest_point_sample(lidar_m, 2048), dim=-1).values).contiguous()
+    padded = torch.from_numpy(padded_eval_cloud(0, 16384)[None]).to(device)
     dso = torch.from_numpy(eval_cloud(7, 9000)[None]).to(device)
     big = torch.from_numpy(lidar_like_scan(8, n_points=40000)[None]).to(device)
+    keys4 = torch.from_numpy(np.stack(
+        [eval_cloud(s, 16384) for s in (1, 2, 3, 4)])).to(device)
+    q4 = (keys4[:, ::8] + 0.05).contiguous()
+    small = torch.from_numpy(np.stack(
+        [eval_cloud(s, 3000) for s in (5, 6)])).to(device)
     P2, KP = B // 2, 512
     kp = pts[:P2, :KP].contiguous() + 0.25  # the detection loss's keypoints
+    has_g = hasattr(T, "topk_prepass")
     cases = []
-    for label, q, keys, k in (
-            (f"self k=8 [{B},{N}]", pts, pts, 8),
-            (f"self k=8 [{B},{M}]", sub, sub, 8),
-            (f"cross k=3 [{B},{N}]->[{B},{M}]", pts, sub, 3),
-            (f"cross k=16 [{P2},{KP}]->[{P2},{N}]", kp,
+    for name, label, q, keys, k in (
+            # A: the 3-NN of the forward and of the extraction forward
+            ("knn", f"cross k=3 [{B},{N}]->[{B},{M}]", pts, sub, 3),
+            ("knn", "cross k=3 [1,16384]->[1,2048] (extraction)", lidar_m,
+             lidar_sub, 3),
+            # G: the self kNN k=8 of the forward, the train step and the
+            # extraction forward, the detection loss's k=16; keypoint NMS's
+            # 50-NN of a normalised lidar eval cloud in loader order (its
+            # call), the same cloud in Morton order, an undersized scan the
+            # loader pads with 1e5 sentinels (at NMS's k and at the
+            # forward's), the dso size, cross queries, G's k above 64
+            ("knn_topk", f"self k=8 [{B},{N}]", pts, pts, 8),
+            ("knn_topk", f"self k=8 [{B},{M}]", sub, sub, 8),
+            ("knn_topk", f"cross k=16 [{P2},{KP}]->[{P2},{N}]", kp,
              pts[:P2].contiguous(), 16),
-            ("self k=8 [1,16384] (extraction)", lidar_m, lidar_m, 8)):
+            ("knn_topk", "self k=8 [1,16384] (extraction)", lidar_m,
+             lidar_m, 8),
+            ("knn_topk", "self k=8 [1,16384] padded 49%", padded, padded, 8),
+            ("knn_topk", "self k=50 [1,16384] (NMS, loader order)", lidar,
+             lidar, 50),
+            ("knn_topk", "self k=50 [1,16384] Morton order", lidar_m,
+             lidar_m, 50),
+            ("knn_topk", "self k=50 [1,16384] padded 49% (NMS)", padded,
+             padded, 50),
+            ("knn_topk", "self k=50 [1,9000] (dso)", dso, dso, 50),
+            ("knn_topk", "cross k=50 [4,2048]x[4,16384]", q4, keys4, 50),
+            ("knn_topk", "self k=33 [2,3000]", small, small, 33),
+            ("knn_topk", "self k=128 [2,3000]", small, small, 128)):
         b, nq, nk = q.shape[0], q.shape[1], keys.shape[1]
-        cases.append(dict(
-            name="knn", label=label, inputs=(q, keys), pairs=b * nq * nk,
-            ops=8 * b * nq * nk, call=partial(T.knn, q, keys, k),
-            plain=partial(T.knn_plain, q, keys, k),
-            plan=plan_of(T, "knn", b, nq, nk, k),
-            forced=lambda s, q=q, keys=keys, k=k: T.knn(q, keys, k,
-                                                         slabs=s),
-            plans=[s for s in (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)
-                   if s <= nk]))
+        c = dict(name=name, label=label, inputs=(q, keys), pairs=b * nq * nk,
+                 ops=8 * b * nq * k, call=partial(T.knn, q, keys, k),
+                 plain=partial(T.knn_plain, q, keys, k),
+                 plan=plan_of(T, name, b, nq, nk, k))
+        if has_g and name == "knn":
+            c.update(g_plan=T.topk_plan(k),
+                     g_forced=lambda p, q=q, keys=keys, k=k: T.knn(
+                         q, keys, k, plan=p))
+        elif has_g:
+            c.update(forced=lambda p, q=q, keys=keys, k=k: T.knn(
+                q, keys, k, plan=p), plans=(0, 1),
+                prepass=partial(T.topk_prepass, q, keys))
+        cases.append(c)
     for label, p, m in ((f"[{B},{N}]->{M}", pts, M),
                         (f"[{B},{M}]->{M} (chain floor)", sub, M),
                         ("[1,16384]->2048", lidar, 2048),
@@ -614,21 +669,31 @@ def kernel_phase(torch, T, device):
         assert err <= WSUM_REL * ref.abs().max().item(), err
         return err
 
-    def knn_case(name, shape, q, keys, k):
-        case(name, shape, lambda: T.knn(q, keys, k),
-             lambda: T.knn_plain(q, keys, k), same_knn, (q, keys),
-             8 * q.shape[0] * q.shape[1] * keys.shape[1])
-
-    # A and B at every shape of the path, with the plan each took; A's
-    # instruction floor (the instructions every pair issues, over 128 lanes
-    # of every SM at the SM clock read just after), B's chain floor (the
-    # fastest time an iteration of any plan at [20,1024]->1024, times m - 1)
+    # A, G and B at every shape of the path, with the plan each took; A's
+    # instruction floor (the instructions every pair issues in its full
+    # scan, over 128 lanes of every SM at the SM clock read just after)
+    # and G's `scan_floor_ms`, the same for all its pairs: what a full scan
+    # could take at best, which G's pruning takes it under (a yardstick,
+    # not a bound: G's bound is its bytes); G's pre-pass alone, G beside A
+    # at A's shapes (`g_ms`, forced to its own plan at that k), B's chain
+    # floor (the fastest time an iteration of any plan at [20,1024]->1024,
+    # times m - 1)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     rows = []
     for c in knn_fps_cases(torch, T, device):
-        rows.append((c, case(c["name"], c["label"], c["call"], c["plain"],
-                             same_knn if c["name"] == "knn" else same,
-                             c["inputs"], c["ops"], info={"plan": c["plan"]})))
+        extra, call = {}, c["call"]
+        if "g_forced" in c:  # G at A's shape, beside A
+            g_call = partial(c["g_forced"], c["g_plan"])
+            same_knn(g_call(), c["plain"]())
+            extra["g_ms"] = g_call
+        if "prepass" in c:
+            extra["prepass_ms"] = c["prepass"]
+        rows.append((c, case(c["name"], c["label"], call, c["plain"],
+                             same if c["name"] == "fps" else same_knn,
+                             c["inputs"], c["ops"], info={"plan": c["plan"]},
+                             **extra)))
+        if "g_plan" in c:
+            rows[-1][1]["g_plan"] = c["g_plan"]
     chain = next((c, r) for c, r in rows if c.get("chain_plans"))
     chain[1]["plans_ms"] = {}
     for plan in chain[0]["chain_plans"]:
@@ -640,14 +705,15 @@ def kernel_phase(torch, T, device):
     log(f"  fps {chain[0]['label']:42s} by plan {chain[1]['plans_ms']}: the "
         f"chain floor is {best}'s {chain_us:.3f} us an iteration")
     for c, row in rows:
-        if c["name"] == "knn":
+        if c["name"] != "fps":
             row["sm_clock_mhz"] = mhz = sm_clock_mhz(torch, c["call"],
                                                      row["ms"])
-            row["instruction_floor_ms"] = (
-                KNN_FLOOR_INSTRUCTIONS_PER_PAIR * c["pairs"] / (sms * 128)
-                / (mhz * 1e6) * 1e3)
-            log(f"  knn {c['label']:42s} instruction floor "
-                f"{row['instruction_floor_ms']:.3f} ms at {mhz:.0f} MHz")
+            key = ("instruction_floor_ms" if c["name"] == "knn"
+                   else "scan_floor_ms")
+            row[key] = (KNN_FLOOR_INSTRUCTIONS_PER_PAIR * c["pairs"]
+                        / (sms * 128) / (mhz * 1e6) * 1e3)
+            log(f"  {c['name']} {c['label']:42s} {key} {row[key]:.3f} ms "
+                f"at {mhz:.0f} MHz")
         else:
             row["us_per_iteration"] = row["ms"] * 1e3 / max(1, c["m"] - 1)
             row["chain_floor_ms"] = chain_us * (c["m"] - 1) / 1e3
@@ -727,40 +793,6 @@ def kernel_phase(torch, T, device):
         cases[c["name"]][-1]["fresh_bound_ms"] = bound(
             nbytes(*c["reads"], c["nbh"], out), c["ops"])[0]
 
-    # G: keypoint NMS's 50-NN of a normalised lidar eval cloud (loader
-    # order), the same across clouds, and the ends of G's k range; B on the
-    # eval clouds beyond one block's shared memory (the cluster tier)
-    def clouds(seeds, numpts):
-        return torch.from_numpy(np.stack(
-            [eval_cloud(s, numpts) for s in seeds])).to(device)
-
-    lidar = clouds([0], 16384)
-    knn_case("knn_topk", "self k=50 [1,16384]", lidar, lidar, 50)
-    keys4 = clouds([1, 2, 3, 4], 16384)
-    q4 = (keys4[:, ::8] + 0.05).contiguous()
-    knn_case("knn_topk", "cross k=50 [4,2048]x[4,16384]", q4, keys4, 50)
-    small = clouds([5, 6], 3000)
-    for k in (33, 128):
-        knn_case("knn_topk", f"self k={k} [2,3000]", small, small, k)
-
-    # G at the detection loss's k=16 shape, a yardstick beside A (G takes
-    # any k <= 128, a warp a query; the path never routes k=16 to it)
-    from dh3d_tpu_torch import kernels
-
-    P2, KP = B // 2, 512
-    kp = pts[:P2, :KP].contiguous() + 0.25
-    keys16 = pts[:P2].contiguous()
-
-    def topk16():
-        idx = torch.empty(P2, KP, 16, dtype=torch.int64, device=device)
-        d2 = torch.empty(P2, KP, 16, device=device)
-        kernels.KNN_TOPK.launch(device, kp.data_ptr(), keys16.data_ptr(),
-                                idx.data_ptr(), d2.data_ptr(), P2, KP, N, 16)
-        return idx, d2
-
-    case("knn_topk", f"cross k=16 [{P2},{KP}]->[{P2},{N}] (yardstick)",
-         topk16, lambda: T.knn_plain(kp, keys16, 16), same_knn, (kp, keys16),
-         8 * P2 * KP * N)
     return cases
 
 
@@ -776,10 +808,25 @@ def eval_cloud(seed, numpts):
     return cloud
 
 
-def lidar_like_scan(seed, n_points=30000):
+def padded_eval_cloud(seed, numpts):
+    """An undersized scan (9,000 points over +-16 m) through the local eval
+    loader: ~8,300 real points, then ~8,100 rows of 1e5 sentinels to
+    `numpts` (`get_fixednum_pcd` with randsample=False, as the eval loader
+    calls it).  [numpts, 3] float32."""
+    from dh3d_tpu_torch.data.io import get_fixednum_pcd
+
+    cloud, real = get_fixednum_pcd(
+        lidar_like_scan(seed, n_points=9000, extent=16.0), numpts,
+        randsample=False, need_downsample=True,
+        rng=np.random.RandomState(seed))
+    assert real < numpts and (cloud[real:] == 1e5).all(), real
+    return cloud
+
+
+def lidar_like_scan(seed, n_points=30000, extent=30.0):
     from dh3d_tpu_torch.data.synthetic import lidar_like_scan as scan
 
-    return scan(seed, n_points=n_points)
+    return scan(seed, n_points=n_points, extent=extent)
 
 
 def check_outputs(torch, outs, points, B, N):
@@ -886,6 +933,7 @@ def profile_step(torch, step):
         step()
         torch.cuda.synchronize()
     classes = (
+        ("kernel G", ("topk_",)),
         ("port kernels A-F", ("knn_kernel", "knn_merge", "fps_kernel",
                               "weighted_sum", "neighbor_max")),
         ("GEMMs", ("gemm", "cutlass", "xmma", "sm90_", "ampere_", "cublas")),
@@ -1127,6 +1175,9 @@ def extraction_phase(torch, kernels, work):
         f"{ {k: round(v, 2) for k, v in report['ms_per_cloud'].items()} }; "
         f"keypoints {kps}; peak {peak_gb:.2f} GB")
 
+    report["nms_split"] = nms_split(torch)
+    log(f"  NMS of one cloud [16384], k=50: {report['nms_split']}")
+
     dense = local_cli(one, os.path.join(work, "dense"), "--save_all")
     rows = check_rows(os.path.join(work, "dense", "scan0_res.bin"), 16384)
     assert len(rows) == 16384 and dense["clouds"] == 1
@@ -1169,6 +1220,32 @@ def extraction_phase(torch, kernels, work):
         f"(host clock, with model load and recall); recall@1 "
         f"{gsum['recall@N'][0]:.3f}")
     return launches, report
+
+
+def nms_split(torch):
+    """`device_nms` of one normalised N=16384 cloud (k=50, the CLI's
+    defaults), as the extraction calls it: host-clock ms (median of 10,
+    from the host arrays to the keypoint indices on the host) and the
+    profiler's device ms of one call by kernel class (kernel G, its
+    pre-pass and search, against the NMS's PyTorch ops)."""
+    from dh3d_tpu_torch.eval import device_nms
+
+    xyz = eval_cloud(0, 16384)
+    att = np.random.RandomState(0).rand(16384).astype(np.float32)
+    args = (xyz, att, NMS["radius"], NMS["ratio"], NMS["max_kp"])
+    call = partial(device_nms, *args, device="cuda")
+    call()
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        call()
+        times.append((time.perf_counter() - t0) * 1e3)
+    try:
+        split = profile_step(torch, call)
+        split.pop("E + F + inverse builds", None)
+    except Exception as e:  # the split is a report, not a check
+        split = {"not measured": repr(e)}
+    return {"host_ms": statistics.median(times), "device_ms": split}
 
 
 def card_vs_cpu_extraction(torch, T, device):
@@ -1538,8 +1615,9 @@ def forward_report(torch, fn, points, sha, clouds):
 
 
 def sweep_run(out_dir):
-    """Every plan kernels A and B take at each shape of `knn_fps_cases`
-    (output checked equal to the plain version) and kernels C and D at
+    """Every plan kernels G and B take at each shape of `knn_fps_cases`
+    (A and G's plans at A's shapes; output checked equal to the plain
+    version) and kernels C and D at
     each shape of `forward_cases` (equal to the path's), device time;
     written to OUT/sweep.json."""
     import torch
@@ -1556,22 +1634,36 @@ def sweep_run(out_dir):
         ref = c["plain"]()
         row = {"name": c["name"], "label": c["label"], "plan": c["plan"],
                "ms": {}}
-        for plan in c["plans"]:
-            fn = partial(c["forced"], plan)
-            try:
-                out = fn()
-            except ValueError:  # a plan whose blocks cannot hold the cloud
-                continue
-            for a, b in zip(*(o if isinstance(o, tuple) else (o,)
-                              for o in (out, ref))):
-                assert torch.equal(a, b), (c["label"], plan)
-            key = str(plan if isinstance(plan, int) else list(plan))
-            row["ms"][key] = ms = device_ms(torch, fn)
-            log(f"  {c['name']} {c['label']:42s} plan {key} {ms:.4f} ms")
+        # A's shapes: A, then every plan of G (where `knn` draws the line)
+        routes = [("", c["forced"], c["plans"])] if "forced" in c else [
+            ("", lambda plan: c["call"](), ["own"])]
+        if "g_forced" in c:
+            row["g_plan"], row["g_ms"] = c["g_plan"], {}
+            routes.append(("g_", c["g_forced"], (0, 1)))
+        for prefix, forced, plans in routes:
+            for plan in plans:
+                fn = partial(forced, plan)
+                try:
+                    out = fn()
+                except ValueError:  # a plan whose blocks cannot hold it
+                    continue
+                for a, b in zip(*(o if isinstance(o, tuple) else (o,)
+                                  for o in (out, ref))):
+                    assert torch.equal(a, b), (c["label"], plan)
+                key = str(plan if isinstance(plan, (int, str))
+                          else list(plan))
+                row[prefix + "ms"][key] = ms = device_ms(torch, fn)
+                log(f"  {c['name']} {c['label']:42s} {prefix}plan {key} "
+                    f"{ms:.4f} ms")
         best = min(row["ms"], key=row["ms"].get)
         log(f"  {c['name']} {c['label']:42s} best {best} "
             f"{row['ms'][best]:.4f} ms; the plan's {c['plan']} "
             f"{row['ms'].get(str(c['plan']))}")
+        if row.get("g_ms"):
+            g_best = min(row["g_ms"], key=row["g_ms"].get)
+            log(f"  {c['name']} {c['label']:42s} G's best {g_best} "
+                f"{row['g_ms'][g_best]:.4f} ms; G's plan {c['g_plan']} "
+                f"{row['g_ms'].get(str(c['g_plan']))}")
         report["cases"].append(row)
     for c in forward_cases(torch, T, device):
         if c.get("nan") or ("+" in c["label"] and "+id +slot" not in

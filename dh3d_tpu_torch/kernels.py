@@ -124,7 +124,9 @@ def library() -> ctypes.CDLL:
             lib.dh3d_error_string.restype = ctypes.c_char_p
             lib.dh3d_fps_max_points.argtypes = [_I, _I, _I]
             lib.dh3d_fps_max_points.restype = _I
-            for k in KERNELS:
+            lib.dh3d_knn_topk_workspace.argtypes = [_I, _I, _I]
+            lib.dh3d_knn_topk_workspace.restype = ctypes.c_size_t
+            for k in KERNELS + (KNN_TOPK_PREPASS,):
                 fn = getattr(lib, k.symbol)
                 fn.argtypes = k.argtypes
                 fn.restype = _I
@@ -162,9 +164,12 @@ class Kernel:
         self.launches += 1
 
 
-KNN = Kernel("knn", "dh3d_knn", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I])
-KNN_TOPK = Kernel("knn_topk", "dh3d_knn_topk",
-                  [_P, _P, _P, _P, _I, _I, _I, _I])
+KNN = Kernel("knn", "dh3d_knn", [_P, _P, _P, _P, _I, _I, _I, _I])
+# G: sizes, then the plan (merge)
+KNN_TOPK = Kernel("knn_topk", "dh3d_knn_topk", [_P] * 5 + [_I] * 5)
+# G's pre-pass alone, for timing it; not a kernel of its own (G launches it)
+KNN_TOPK_PREPASS = Kernel("knn_topk_prepass", "dh3d_knn_topk_prepass",
+                          [_P, _P, _P, _I, _I, _I])
 FPS = Kernel("fps", "dh3d_fps", [_P, _P, _I, _I, _I, _I, _I])
 # C and D: sizes, then the plan (vec, lanes, passes)
 WEIGHTED_SUM = Kernel("weighted_sum", "dh3d_weighted_sum",
@@ -199,6 +204,13 @@ def fps_max_points(device: torch.device, cluster: int = 8,
     the most `farthest_point_sample` takes); 0 for a plan it refuses."""
     return int(library().dh3d_fps_max_points(device.index or 0, cluster,
                                              threads))
+
+
+def topk_workspace_bytes(B: int, Nq: int, Nk: int) -> int:
+    """Bytes of scratch kernel G needs (its sorted key table, chunk and
+    group boxes, the order and positions of cross queries); 0 for sizes it
+    refuses."""
+    return int(library().dh3d_knn_topk_workspace(B, Nq, Nk))
 
 
 @functools.lru_cache(maxsize=None)

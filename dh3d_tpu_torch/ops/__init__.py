@@ -2,7 +2,8 @@
 
 Kernelled ops (CUDA kernel for CUDA tensors, plain PyTorch for CPU
 tensors): `knn` (and `knn_bruteforce`, `knn_bruteforce_pairwise`,
-`three_nn` on it; launch plan `knn_plan`), `farthest_point_sample` (launch
+`three_nn` on it; kernel G's launch plan `topk_plan` and its pre-pass
+alone, `topk_prepass`), `farthest_point_sample` (launch
 plan `fps_plan`), `weighted_sum` (and
 `conv_pointset`, `three_interpolate` on it) with its backward
 `weighted_sum_backward`, `flex_moments` (and `flex_conv` on it) with its
@@ -29,8 +30,8 @@ from dh3d_tpu_torch.ops.knn import (
     knn_bruteforce,
     knn_bruteforce_pairwise,
     knn_plain,
-    knn_plan,
-    knn_slabs,
+    topk_plan,
+    topk_prepass,
 )
 from dh3d_tpu_torch.ops.morton import morton_codes, morton_perm
 from dh3d_tpu_torch.ops.neighborhood import (
@@ -64,8 +65,8 @@ __all__ = [
     "flex_moments", "flex_moments_backward", "flex_moments_plain", "flex_pool",
     "flex_weights", "fps_plain", "fps_plan", "gather_neighbors", "gather_point",
     "group_point", "inverse_distance_weights", "inverse_neighbors", "knn",
-    "knn_bruteforce", "knn_bruteforce_pairwise", "knn_plain", "knn_plan",
-    "knn_slabs",
+    "knn_bruteforce", "knn_bruteforce_pairwise", "knn_plain", "topk_plan",
+    "topk_prepass",
     "morton_codes", "morton_perm", "neighbor_max", "neighbor_max_backward",
     "neighbor_max_backward_plain", "neighbor_max_plain",
     "neighbor_max_with_slot", "row_plan", "subsample",

@@ -1,13 +1,14 @@
-"""Exact k nearest neighbours: kernels A (`csrc/knn.cu`, k <= 32) and G
-(`csrc/knn_topk.cu`, 32 < k <= 128) and their plain version.
+"""Exact k nearest neighbours: kernels A (`csrc/knn.cu`, k <= 7) and G
+(`csrc/knn_topk.cu`, 8 <= k <= 128) and their plain version.
 
 Counterpart of `dh3d_tpu/ops/knn.py` and of the Pallas kernels
-`knn_pallas._knn_kernel_packed` (self-kNN), `knn_pallas._knn_kernel_banded`
-(3-NN over the whole key table), `knn_pallas._knn_kernel` (exact cross
-kNN: the detection loss's k=16 queries, `knn_bruteforce_pairwise`) and
-`knn_pallas._knn_kernel_slab` (every k >= 32: keypoint NMS's k=50).
-Kernel A's launch plan, `knn_plan` (its count of key slabs), is pure
-Python, so it is tested on the CPU.  Semantics of the reference CPU
+`knn_pallas._knn_kernel_banded` (3-NN over the whole key table),
+`knn_pallas._knn_kernel_packed` (self-kNN), `knn_pallas._knn_kernel`
+(exact cross kNN: the detection loss's k=16 queries,
+`knn_bruteforce_pairwise`) and `knn_pallas._knn_kernel_slab` (every k >=
+32: keypoint NMS's k=50).  Kernel G's launch plan, `topk_plan` (how a
+chunk's candidates enter its list), is pure Python, so it is tested on the
+CPU.  Semantics of the reference CPU
 kernel (`user_ops/kernels/knn_bruteforce_kernel.cc:25-72`): neighbours
 ascending by distance, the lowest index first among equal distances, so a
 self query finds itself at slot 0 (distance exactly 0).
@@ -25,39 +26,26 @@ import torch
 
 from dh3d_tpu_torch import kernels
 
-MAX_K = 32  # kernel A's largest k; kernel G takes the k above it
+# Kernel A's largest k; kernel G takes every k above it.  In one call on an
+# H100 (`chip_smoke.py --ab-root`; PERF.md section 6) G took 47-57% less
+# time than A at the path's k >= 8 shapes (the self kNN k=8 at [20,8192]
+# and [1,16384], padded or not, the detection loss's k=16 [10,512] x
+# [10,8192]) and 3% less at k=8 [20,1024]; at the 3-NN [20,8192] ->
+# [20,1024] it took twice A's time: A's list of 3 costs less than G's fill
+# of 32.  The line is drawn by k, so that each k has one kernel.
+MAX_K = 7
 TOPK_MAX_K = 128  # kernel G's largest k (`dh3d_knn_topk`)
+TOPK_CHUNK = 32  # keys a chunk of kernel G's sorted table
 _CHUNK_ELEMS = 1 << 23  # bounds the plain version's [B, chunk, Nk] d2 block
 
-# Kernel A's launch plan (`csrc/knn.cu`): 256 threads a block, a query a
-# thread, and S key slabs on the grid, merged by a second kernel when S > 1.
-KNN_THREADS = 256
-KNN_MAX_SLABS = 64  # the most slabs the merge takes
-KNN_MIN_SLAB = 2048  # keys: the plan cuts no shorter slab
-KNN_BLOCKS_PER_SM = 4  # the plan splits keys until the blocks make these
 
-
-def knn_slabs(nk: int, s: int) -> list:
-    """Kernel A's S slabs of `nk` keys: [(lo, hi)], contiguous and
-    ascending, each ceil(nk / s) keys long but the last (which may be
-    shorter, or empty)."""
-    size = -(-nk // s)
-    return [(min(nk, i * size), min(nk, (i + 1) * size)) for i in range(s)]
-
-
-def knn_plan(B: int, Nq: int, Nk: int, k: int, sm_count: int) -> int:
-    """Kernel A's count of key slabs S for B clouds of Nq queries over Nk
-    keys: 1 where B * ceil(Nq / 256) blocks give the card's `sm_count` SMs
-    KNN_BLOCKS_PER_SM blocks each; else enough slabs for that, but none
-    shorter than KNN_MIN_SLAB keys and at most KNN_MAX_SLABS.  A sweep of
-    every S at the path's shapes on an H100 (`chip_smoke.py --sweep`;
-    PERF.md) chose these: shorter slabs cost more in the merge and the
-    per-block set-up than they win."""
-    blocks = B * -(-Nq // KNN_THREADS)
-    want = KNN_BLOCKS_PER_SM * sm_count
-    if blocks >= want:
-        return 1
-    return max(1, min(-(-want // blocks), Nk // KNN_MIN_SLAB, KNN_MAX_SLABS))
+def topk_plan(k: int) -> int:
+    """Kernel G's plan at k: merge 1, a chunk's candidates merged into the
+    list at once, above k = 32 (a list of 64 or 128); merge 0, inserted one
+    at a time, at or below it (a list of 32).  A sweep of both at the
+    path's shapes on an H100 (`chip_smoke.py --sweep`; PERF.md) chose it:
+    merging won by 11-46% above k = 32 and lost by 5-29% below."""
+    return 1 if k > 32 else 0
 
 
 def knn_plain(query: torch.Tensor, keys: torch.Tensor, k: int):
@@ -82,16 +70,20 @@ def knn_plain(query: torch.Tensor, keys: torch.Tensor, k: int):
     return torch.cat(idx, dim=1), torch.cat(dist, dim=1)
 
 
-def knn(query: torch.Tensor, keys: torch.Tensor, k: int, slabs=None):
+def knn(query: torch.Tensor, keys: torch.Tensor, k: int, plan=None):
     """k nearest keys of every query, exact.
 
     query [B, Nq, 3] and keys [B, Nk, 3] float32, contiguous, 1 <= k <=
     Nk.  Returns (idx [B, Nq, k] int64 into keys, d2 [B, Nq, k] float32
-    squared distances), ascending; the lowest index wins ties.  CPU tensors
-    take the plain version, for any k; CUDA tensors launch kernel A for
-    k <= 32, with `slabs` key slabs or `knn_plan`'s, and kernel G for
-    32 < k <= 128, and raise ValueError above or for a count of slabs
-    kernel A does not take."""
+    squared distances), ascending by (d2, index): the lowest index wins
+    ties, so a self query is at slot 0 but behind an exact duplicate with
+    a lower index.  CPU tensors take the plain version, for any k.  CUDA
+    tensors launch kernel A for k <= 7 and kernel G for 8 <= k <= 128, or
+    G at any k with `plan` (its merge: 0 or 1) given; G's own plan is
+    `topk_plan`'s.  Kernel G sorts the keys into spatial chunks, prunes
+    them by their boxes and selects by (d2, index), so its output is the
+    same whatever order it visits keys in.  Raises ValueError for k > 128
+    and for a plan the kernel does not take."""
     B, Nq = query.shape[:2]
     kernels.check(query, "query", torch.float32, (None, None, 3))
     kernels.check(keys, "keys", torch.float32, (B, None, 3))
@@ -106,24 +98,38 @@ def knn(query: torch.Tensor, keys: torch.Tensor, k: int, slabs=None):
     dev = query.device
     idx = torch.empty(B, Nq, k, dtype=torch.int64, device=dev)
     d2 = torch.empty(B, Nq, k, dtype=torch.float32, device=dev)
-    if k > MAX_K:
-        if slabs is not None:
-            raise ValueError(f"knn: kernel G (k={k}) takes no slabs")
-        kernels.KNN_TOPK.launch(dev, query.data_ptr(), keys.data_ptr(),
-                                idx.data_ptr(), d2.data_ptr(), B, Nq, Nk, k)
+    if plan is None and k <= MAX_K:
+        kernels.KNN.launch(dev, query.data_ptr(), keys.data_ptr(),
+                           idx.data_ptr(), d2.data_ptr(), B, Nq, Nk, k)
         return idx, d2
-    s = slabs if slabs is not None else knn_plan(
-        B, Nq, Nk, k, kernels.sm_count(dev.index or 0))
-    slab_d2 = slab_idx = None
-    if s > 1:  # each slab's top k, merged into idx / d2
-        slab_d2 = torch.empty(s, B, Nq, k, dtype=torch.float32, device=dev)
-        slab_idx = torch.empty(s, B, Nq, k, dtype=torch.int32, device=dev)
-    kernels.KNN.launch(dev, query.data_ptr(), keys.data_ptr(), idx.data_ptr(),
-                       d2.data_ptr(),
-                       None if slab_d2 is None else slab_d2.data_ptr(),
-                       None if slab_idx is None else slab_idx.data_ptr(),
-                       B, Nq, Nk, k, s)
+    ws = torch.empty(kernels.topk_workspace_bytes(B, Nq, Nk),
+                     dtype=torch.uint8, device=dev)
+    kernels.KNN_TOPK.launch(dev, query.data_ptr(), keys.data_ptr(),
+                            idx.data_ptr(), d2.data_ptr(), ws.data_ptr(),
+                            B, Nq, Nk, k,
+                            topk_plan(k) if plan is None else plan)
     return idx, d2
+
+
+def topk_prepass(query: torch.Tensor, keys: torch.Tensor):
+    """Kernel G's pre-pass alone, on CUDA tensors (for timing it and for
+    the card tests): returns (table [B, Nk, 4] float32, the keys sorted
+    into chunks of 32 with their original index's bits in column 3; boxes
+    [B, ceil(Nk / 32), 2, 4], each chunk's lo (columns 0-2) with its lowest
+    original index's bits (column 3), then its hi).  The order within a
+    cell is left by atomics: it may differ between runs."""
+    B, Nq, Nk = query.shape[0], query.shape[1], keys.shape[1]
+    dev = query.device
+    ws = torch.empty(kernels.topk_workspace_bytes(B, Nq, Nk),
+                     dtype=torch.uint8, device=dev)
+    kernels.KNN_TOPK_PREPASS.launch(dev, query.data_ptr(), keys.data_ptr(),
+                                    ws.data_ptr(), B, Nq, Nk)
+    nchunks = -(-Nk // TOPK_CHUNK)
+    at = 16 * B * Nk  # the table's bytes, then the boxes'
+    table = ws[:at].view(torch.float32).view(B, Nk, 4)
+    boxes = ws[at:at + 32 * B * nchunks].view(torch.float32).view(
+        B, nchunks, 2, 4)
+    return table, boxes
 
 
 def knn_bruteforce(positions: torch.Tensor, k: int):

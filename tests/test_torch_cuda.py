@@ -7,9 +7,10 @@ that every test worker collects the same tests).  Run on a card with
 
 Shapes are small versions of the main path's (N not a multiple of
 anything, to exercise the ragged edges), but for FPS at the path's and the
-eval's sizes.  Kernels A and B also run at every launch plan they take
-(A's key slabs, `slabs=`; B's blocks a cloud and threads a block,
-`plan=`), on clouds with exact duplicates and on integer grids.
+eval's sizes.  Kernels G and B also run at every launch plan they take
+(G's merge, `plan=`, also forced at A's k; B's blocks a cloud and threads
+a block, `plan=`), on clouds with exact duplicates and on integer grids,
+G also on clouds padded with the eval loader's 1e5 sentinels.
 kNN (kernels A and G) and FPS must equal their plain versions exactly
 (both build d2 from the same rounded terms), at every plan and on a
 second run;
@@ -25,12 +26,16 @@ train step on the card is held to the CPU's as `chip_smoke.py` phase 7
 holds it (see there).
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
 from dh3d_tpu_torch import kernels
 from dh3d_tpu_torch import ops as T
+
+knn_ops = importlib.import_module("dh3d_tpu_torch.ops.knn")
 
 pytestmark = pytest.mark.cuda
 
@@ -65,9 +70,14 @@ def _close(a, ref, rel=1e-5):
     assert err <= rel * ref.abs().max().item(), err
 
 
+def _knn_kernel(k):
+    """The kernel `knn` launches at k: A up to k = 7, G above."""
+    return kernels.KNN if k <= knn_ops.MAX_K else kernels.KNN_TOPK
+
+
 @pytest.mark.parametrize("k", [1, 3, 8, 16, 32])
 def test_knn_self_equals_plain(cloud, k):
-    idx, d2 = _counted(kernels.KNN, T.knn, cloud, cloud, k)
+    idx, d2 = _counted(_knn_kernel(k), T.knn, cloud, cloud, k)
     pidx, pd2 = T.knn_plain(cloud, cloud, k)
     assert torch.equal(idx, pidx)
     assert torch.equal(d2, pd2)
@@ -108,13 +118,13 @@ def test_fps_beyond_one_block_equals_plain(device, n):
     assert torch.equal(idx, T.fps_plain(pts, m))
 
 
-@pytest.mark.parametrize("k", [1, 3, 8, 16, 32])
+@pytest.mark.parametrize("k", [1, 3, 7, 8, 16, 32])
 @pytest.mark.parametrize("cloud_kind", ["normal", "grid", "few keys"])
 def test_knn_every_plan_equals_plain(device, k, cloud_kind):
-    """Kernel A with S = 1, 2 and 7 key slabs equals the plain version bit
-    for bit: on a normal cloud with exact duplicate keys, on an integer
-    grid (many equal distances), and on 100 keys (Nk < 256, slabs of 15 at
-    S = 7, shorter than k from k = 16); two runs give the same bits."""
+    """`knn`'s own kernel (A to k = 7, G above) and G forced at each merge
+    equal the plain version bit for bit: on a normal cloud with exact
+    duplicate keys, on an integer grid (many equal distances), and on 100
+    keys (Nk < 256); two runs give the same bits."""
     g = torch.Generator().manual_seed(k)
     if cloud_kind == "grid":
         keys = torch.randint(0, 6, (2, 700, 3), generator=g).float()
@@ -126,29 +136,30 @@ def test_knn_every_plan_equals_plain(device, k, cloud_kind):
                       1).contiguous()  # Nq = 377: ragged blocks
     pidx, pd2 = T.knn_plain(query, keys, k)
     qd, kd = query.to(device), keys.to(device)
-    for s in (1, 2, 7):
-        idx, d2 = _counted(kernels.KNN, T.knn, qd, kd, k, slabs=s)
-        assert torch.equal(idx.cpu(), pidx), s
-        assert torch.equal(d2.cpu(), pd2), s
-        again = T.knn(qd, kd, k, slabs=s)
+    for plan, kernel in ((None, _knn_kernel(k)), (0, kernels.KNN_TOPK),
+                         (1, kernels.KNN_TOPK)):
+        idx, d2 = _counted(kernel, T.knn, qd, kd, k, plan=plan)
+        assert torch.equal(idx.cpu(), pidx), plan
+        assert torch.equal(d2.cpu(), pd2), plan
+        again = T.knn(qd, kd, k, plan=plan)
         assert torch.equal(again[0], idx) and torch.equal(again[1], d2)
 
 
 def test_knn_refuses_a_plan_it_does_not_take(cloud):
-    """The entry point refuses S above Nk, S above 64 and k above 32, and
-    the launch raises ValueError without counting a launch."""
-    before = kernels.KNN.launches
-    with pytest.raises(ValueError, match="invalid argument"):
-        T.knn(cloud, cloud[:, :5].contiguous(), 3, slabs=6)
-    with pytest.raises(ValueError, match="invalid argument"):
-        T.knn(cloud, cloud, 3, slabs=65)
-    idx = torch.empty(B, N, 33, dtype=torch.int64, device=cloud.device)
-    d2 = torch.empty(B, N, 33, device=cloud.device)
-    with pytest.raises(ValueError, match="invalid argument"):
-        kernels.KNN.launch(cloud.device, cloud.data_ptr(), cloud.data_ptr(),
-                           idx.data_ptr(), d2.data_ptr(), None, None, B, N,
-                           N, 33, 1)
-    assert kernels.KNN.launches == before
+    """A's entry point refuses k above 7 and above Nk, G's a merge other
+    than 0 or 1; the launch raises ValueError without counting a launch."""
+    before = kernels.counts()
+    idx = torch.empty(B, N, 8, dtype=torch.int64, device=cloud.device)
+    d2 = torch.empty(B, N, 8, device=cloud.device)
+    for k, nk in ((8, N), (3, 2)):
+        with pytest.raises(ValueError, match="invalid argument"):
+            kernels.KNN.launch(cloud.device, cloud.data_ptr(),
+                               cloud.data_ptr(), idx.data_ptr(),
+                               d2.data_ptr(), B, N, nk, k)
+    for plan in (2, -1):
+        with pytest.raises(ValueError, match="invalid argument"):
+            T.knn(cloud, cloud, 50, plan=plan)
+    assert kernels.counts() == before
 
 
 # FPS at the shapes of the forward, the lidar and dso eval sizes and a
@@ -198,32 +209,149 @@ def test_fps_one_point_and_integer_grid(device, c):
         assert torch.equal(idx, ref), t
 
 
-@pytest.mark.parametrize("k", [33, 50, 128])
-def test_knn_topk_self_equals_plain(device, k):
-    """Kernel G, with exact duplicates (the lower twin comes first)."""
+# Kernel G's inputs: (kind, what it tests)
+TOPK_KINDS = {
+    "duplicates": "exact duplicates across chunk boundaries",
+    "grid": "an integer grid: many equal distances at the k-th slot",
+    "padded": "an undersized cloud padded with 1e5 sentinels",
+    "mostly padded": "pads above and among the k nearest",
+    "outlier": "one far point stretching the keys' box",
+    "morton": "keys already in Morton order",
+    "ragged": "Nk not a multiple of any chunk",
+    "nk == k": "exactly k keys",
+}
+
+
+def _topk_cloud(kind, k, g):
+    """[2, N, 3] keys on the CPU for one of TOPK_KINDS."""
+    if kind == "grid":
+        return torch.randint(0, 8, (2, 1500, 3), generator=g).float()
+    n = {"ragged": 1000 + 17, "nk == k": k}.get(kind, 1500)
+    pos = torch.randn(2, n, 3, generator=g) * 5
+    if kind == "duplicates":
+        pos[:, 1000:1100] = pos[:, 0:100]
+        pos[:, 31:97:2] = pos[:, 1200:1233]  # twins in other chunks
+    elif kind == "padded":
+        pos[:, 1200:] = 1e5  # `get_fixednum_pcd`'s sentinel rows
+    elif kind == "mostly padded":
+        pos[:, 100:] = 1e5
+    elif kind == "outlier":
+        pos[:, 333] = torch.tensor([-4e4, 3e4, 2e3])
+    elif kind == "morton":
+        perm, _ = T.morton_perm(pos)
+        pos = torch.gather(pos, 1, perm[..., None].expand(-1, -1, 3))
+    return pos.contiguous()
+
+
+def _same_topk_every_plan(query, keys, k, self_query=False):
+    """Kernel G at every plan it takes (its own and each merge forced)
+    equals the plain version bit for bit, on two runs."""
+    pidx, pd2 = T.knn_plain(query.cpu(), keys.cpu(), k)
+    if self_query:
+        keys = query
+    for plan in (None, 0, 1):
+        if plan is None and k <= knn_ops.MAX_K:
+            continue  # kernel A's k
+        idx, d2 = _counted(kernels.KNN_TOPK, T.knn, query, keys, k,
+                           plan=plan)
+        assert torch.equal(idx.cpu(), pidx), plan
+        assert torch.equal(d2.cpu(), pd2), plan
+        again = T.knn(query, keys, k, plan=plan)
+        assert torch.equal(again[0], idx) and torch.equal(again[1], d2), plan
+    return pidx
+
+
+@pytest.mark.parametrize("kind", sorted(TOPK_KINDS))
+@pytest.mark.parametrize("k", [1, 8, 16, 33, 50, 64, 128])
+def test_knn_topk_self_equals_plain(device, k, kind):
+    """Kernel G, self queries, at every plan: bit for bit equal to the
+    plain version on each kind of cloud; a point without a lower twin is
+    its own first neighbour."""
     g = torch.Generator().manual_seed(k)
-    pos = torch.randn(2, 1500, 3, generator=g) * 5
-    pos[:, 1000:1100] = pos[:, 0:100]
-    pos = pos.to(device)
-    idx, d2 = _counted(kernels.KNN_TOPK, T.knn, pos, pos, k)
-    pidx, pd2 = T.knn_plain(pos, pos, k)
-    assert torch.equal(idx, pidx) and torch.equal(d2, pd2)
-    assert torch.equal(idx[:, :1000, 0].cpu(), torch.arange(1000).expand(2, -1))
-    assert torch.equal(idx[:, 1000:1100, 0].cpu(),
-                       torch.arange(100).expand(2, -1))
+    pos = _topk_cloud(kind, k, g)
+    pidx = _same_topk_every_plan(pos.to(device), pos.to(device), k,
+                                 self_query=True)
+    own = pidx[:, :, 0] == torch.arange(pos.shape[1])
+    if kind in ("ragged", "morton", "outlier"):
+        assert own.all()
+    elif kind == "duplicates":  # 1000 + 2i is the twin of 2i
+        assert own[:, :1000].all() and not own[:, 1000:1100:2].any()
 
 
-@pytest.mark.parametrize("k", [33, 50, 128])
-def test_knn_topk_cross_equals_plain(device, k):
+@pytest.mark.parametrize("kind", ["duplicates", "grid", "padded", "ragged",
+                                  "outlier"])
+@pytest.mark.parametrize("k", [16, 33, 50, 128])
+def test_knn_topk_cross_equals_plain(device, k, kind):
+    """Kernel G, queries apart from the keys (some on duplicated keys,
+    some outside the keys' box), B = 2, at every plan."""
     g = torch.Generator().manual_seed(100 + k)
-    keys = torch.randn(3, 4100, 3, generator=g) * 5
-    keys[:, 3000:3050] = keys[:, 10:60]  # duplicate keys
-    query = torch.randn(3, 333, 3, generator=g) * 5
-    query[:, :20] = keys[:, 10:30]  # queries on duplicated keys
-    idx, d2 = _counted(kernels.KNN_TOPK, T.knn, query.to(device),
-                       keys.to(device), k)
-    pidx, pd2 = T.knn_plain(query, keys, k)
+    keys = _topk_cloud(kind, k, g)
+    query = torch.randn(2, 333, 3, generator=g) * 6
+    query[:, :20] = keys[:, 10:30]  # on (duplicated) keys
+    query[:, 20:30] *= 10  # beyond the keys' box
+    _same_topk_every_plan(query.contiguous().to(device), keys.to(device), k)
+
+
+@pytest.mark.parametrize("n_points,k", [(30000, 50), (12000, 50),
+                                        (12000, 8)])
+def test_knn_topk_eval_cloud_equals_plain(device, n_points, k):
+    """G at keypoint NMS's call (self k=50) and the extraction forward's
+    (k=8) on a lidar-like scan through the eval loader (loader order,
+    N=16384), bit for bit: a full scan, and one the loader pads with 1e5
+    sentinels."""
+    from dh3d_tpu_torch.data.io import get_fixednum_pcd
+    from dh3d_tpu_torch.data.synthetic import lidar_like_scan
+
+    cloud, real = get_fixednum_pcd(lidar_like_scan(0, n_points=n_points),
+                                   16384, randsample=False,
+                                   need_downsample=True,
+                                   rng=np.random.RandomState(0))
+    assert (real < 16384) == (n_points < 30000)
+    pos = torch.from_numpy(cloud)[None]
+    idx, d2 = _counted(kernels.KNN_TOPK, T.knn, pos.to(device),
+                       pos.to(device), k)
+    pidx, pd2 = T.knn_plain(pos, pos, k)
     assert torch.equal(idx.cpu(), pidx) and torch.equal(d2.cpu(), pd2)
+
+
+def test_nms_launches_kernel_g_once(device):
+    """`device_nms` on the card: one launch of G a cloud, and the
+    keypoints of the CPU's NMS."""
+    from dh3d_tpu_torch.eval import device_nms
+
+    g = np.random.RandomState(3)
+    xyz = (g.randn(3000, 3) * 5).astype(np.float32)
+    att = g.rand(3000).astype(np.float32)
+    before = kernels.KNN_TOPK.launches
+    n, kp = device_nms(xyz, att, 0.5, 0.01, 512, device=device)
+    torch.cuda.synchronize()
+    assert kernels.KNN_TOPK.launches == before + 1
+    n_cpu, kp_cpu = device_nms(xyz, att, 0.5, 0.01, 512, device="cpu")
+    assert n == n_cpu and np.array_equal(kp, kp_cpu)
+
+
+@pytest.mark.parametrize("kind", ["normal", "padded"])
+def test_topk_prepass_sorts_into_chunks(device, kind):
+    """G's pre-pass: the table holds every key once with its index, and
+    each chunk's box is the tight box of its keys (the last chunk's of its
+    real keys only), with their lowest index."""
+    g = torch.Generator().manual_seed(len(kind))
+    keys = torch.randn(2, 1000, 3, generator=g) * 5
+    if kind == "padded":
+        keys[:, 700:] = 1e5
+    keys = keys.to(device)
+    table, boxes = T.topk_prepass(keys, keys)
+    ids = table[..., 3].contiguous().view(torch.int32).long()
+    assert torch.equal(ids.sort(-1).values.cpu(),
+                       torch.arange(1000).expand(2, -1))
+    assert torch.equal(table[..., :3], torch.gather(
+        keys, 1, ids[..., None].expand(-1, -1, 3)))
+    low = boxes[:, :, 0, 3].contiguous().view(torch.int32).long()
+    for c in range(boxes.shape[1]):
+        part = table[:, c * 32:(c + 1) * 32, :3]
+        assert torch.equal(boxes[:, c, 0, :3], part.amin(1))
+        assert torch.equal(boxes[:, c, 1, :3], part.amax(1))
+        assert torch.equal(low[:, c], ids[:, c * 32:(c + 1) * 32].amin(1))
 
 
 def test_knn_above_kernel_g_limit_raises(cloud):
@@ -494,8 +622,8 @@ def test_neighbor_max_backward_equals_plain(device, C):
 def test_knn_cross_k16_equals_plain(cloud):
     """The detection loss's query: keypoints against the whole cloud."""
     query = cloud[:, :50].contiguous() + 0.5
-    idx, dist = _counted(kernels.KNN, T.knn_bruteforce_pairwise, query,
-                         cloud, 16)
+    idx, dist = _counted(_knn_kernel(16),
+                         T.knn_bruteforce_pairwise, query, cloud, 16)
     pidx, pd2 = T.knn_plain(query, cloud, 16)
     assert torch.equal(idx, pidx) and torch.equal(dist, torch.sqrt(pd2))
 
