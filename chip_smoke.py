@@ -11,13 +11,14 @@ result line:
   2. build the kernels from `dh3d_tpu_torch/csrc` (one nvcc per source, in
      parallel; timed).
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes the forward, the train step and the extraction give it.  Each
-     case is timed as device time (`device_ms`: calls queued back to back
-     behind a sleep kernel, between two CUDA events, so the host's launch
-     work is hidden).  Beside each: its bound (`bound`: the bytes of its
-     inputs and outputs over the memory rate or its f32 operations over the
-     f32 rate, whichever is larger) and, where PyTorch has one, the library
-     route for the same function (`library_ms`).  Kernels C and D run at
+     shapes the forward, the train step, the extraction and the pair
+     generation give it.  Each case is timed as device time
+     (`device_ms`: calls queued back to back behind a sleep kernel, between
+     two CUDA events, so the host's launch work is hidden).  Beside each:
+     its bound (`bound`: the bytes of its inputs and outputs over the
+     memory rate or its f32 operations over the f32 rate, whichever is
+     larger) and, where PyTorch has one, the library route for the same
+     function (`library_ms`).  Kernels C and D run at
      every shape of the forward (`forward_cases`: the moments through
      `flex_moments`, which must give the bits of `weighted_sum` on the
      weight tensor; D with and without its ids and its slot, and once on
@@ -34,8 +35,10 @@ result line:
      extraction's; A the 3-NN, G every k >= 8, and keypoint NMS's self
      k=50 on the loader-order and the Morton-sorted lidar cloud, on an
      undersized scan the loader pads with 1e5 sentinels (also at k=8), at
-     the dso size, across clouds and at k=33 and 128), each with the plan
-     it took.  A kNN's bound counts its bytes and the d2 of the pairs it
+     the dso size, across clouds and at k=33 and 128; A the pair
+     generation's 1-NN [10,512]x[10,8192], beside its library route
+     `torch.cdist(...).argmin(-1)`; B its FPS [10,4096]->512), each with
+     the plan it took.  A kNN's bound counts its bytes and the d2 of the pairs it
      returns.  Beside A's bound its instruction floor (the 7 instructions
      every pair issues in its full scan's x-y test, over 128 lanes of every
      SM at the SM clock `nvidia-smi` reads under load), beside G's the same
@@ -82,6 +85,25 @@ result line:
      the NMS keypoints of the card's xyz and attention equal on both; the keypoints that
      differ between card-forward + card-NMS and CPU-forward + CPU-NMS are
      counted (reported, not checked).
+ 10. training from disk through the port's CLI
+     (`dh3d_tpu_torch.train.__main__.main`, in this process) on 36 seeded
+     lidar-like scans of 30,000 points written as .bin files with the two
+     GT pickles `train.py` reads (places of 3 scans): (a) `detection_config`
+     with `models/demo_stage2.config.json`'s values ([20, 8192], 512
+     keypoints, `device_pairgen` and `morton_presorted`, prefetch 2),
+     warm-started from `models/demo_stage2.npz`, 4 steps: one step launches
+     B and A each exactly once more than phase 6's step (the pairs' FPS and
+     1-NN) and every other kernel as often; the pairs of its first batch,
+     rebuilt on the card, hold (anchors unique, ids in range, pc2 back
+     from R, positives the plain 1-NN); (b) the host pair path, 2 steps;
+     (c) `global_config` with `models/demo_stage3.config.json`'s values
+     ([24, 8192], presorted) and `augment_on_device`, from
+     `models/demo_stage3.npz`, 2 steps.  Each: metrics finite; the step on
+     CUDA events, clouds/s on the host clock, the wait in `next(batches)`
+     and its share of the step, the loader's ms a cloud alone, peak memory.
+ 11. the pair generation at [2, 8192], 64 anchors, on the card and on the
+     CPU from the same draws: anchors and positives equal, points within
+     1e-6 of their scale.
 The last three lines: the card, the kernels JSON, the ok JSON.
 
 To compare two trees of the port on one card (run them in turns: parent,
@@ -535,13 +557,25 @@ def knn_fps_cases(torch, T, device):
         [eval_cloud(s, 3000) for s in (5, 6)])).to(device)
     P2, KP = B // 2, 512
     kp = pts[:P2, :KP].contiguous() + 0.25  # the detection loss's keypoints
+    # the pair generation's: anchors spread over pc1 (every 16th point of
+    # the Morton order) searched in another jittered draw of the cloud, and
+    # FPS over a random half of each cloud
+    g = torch.Generator(device="cpu").manual_seed(3)
+    anchors = (pts[:P2, ::N // KP] + 0.05 * torch.randn(
+        P2, KP, 3, generator=g).to(device)).contiguous()
+    half = T.gather_point(pts[:P2], torch.stack(
+        [torch.randperm(N, generator=g)[:N // 2] for _ in range(P2)]
+    ).to(device)).contiguous()
     has_g = hasattr(T, "topk_prepass")
     cases = []
     for name, label, q, keys, k in (
-            # A: the 3-NN of the forward and of the extraction forward
+            # A: the 3-NN of the forward and of the extraction forward, the
+            # pair generation's 1-NN
             ("knn", f"cross k=3 [{B},{N}]->[{B},{M}]", pts, sub, 3),
             ("knn", "cross k=3 [1,16384]->[1,2048] (extraction)", lidar_m,
              lidar_sub, 3),
+            ("knn", f"cross k=1 [{P2},{KP}]x[{P2},{N}] (pairgen)", anchors,
+             pts[:P2].contiguous(), 1),
             # G: the self kNN k=8 of the forward, the train step and the
             # extraction forward, the detection loss's k=16; keypoint NMS's
             # 50-NN of a normalised lidar eval cloud in loader order (its
@@ -570,6 +604,10 @@ def knn_fps_cases(torch, T, device):
                  ops=8 * b * nq * k, call=partial(T.knn, q, keys, k),
                  plain=partial(T.knn_plain, q, keys, k),
                  plan=plan_of(T, name, b, nq, nk, k))
+        if k == 1:  # one library call: exact, the first index on a tie
+            c["library"] = lambda q=q, keys=keys: torch.cdist(
+                q, keys, compute_mode="donot_use_mm_for_euclid_dist"
+            ).argmin(-1)
         if has_g and name == "knn":
             c.update(g_plan=T.topk_plan(k),
                      g_forced=lambda p, q=q, keys=keys, k=k: T.knn(
@@ -580,6 +618,7 @@ def knn_fps_cases(torch, T, device):
                 prepass=partial(T.topk_prepass, q, keys))
         cases.append(c)
     for label, p, m in ((f"[{B},{N}]->{M}", pts, M),
+                        (f"[{P2},{N // 2}]->{KP} (pairgen)", half, KP),
                         (f"[{B},{M}]->{M} (chain floor)", sub, M),
                         ("[1,16384]->2048", lidar, 2048),
                         ("[1,9000]->1125", dso, 1125),
@@ -623,13 +662,14 @@ def kernel_phase(torch, T, device):
         return [t for t in out if t is not None]
 
     def case(name, shape, kernel_fn, plain_fn, compare, inputs, ops,
-             library_fn=None, info=None, **extra):
+             library_fn=None, info=None, library_compare=None, **extra):
         """Compare, time and bound one kernel case.  `inputs`: the tensors
         the function reads (its outputs are counted from the kernel's);
         `ops`: its f32 operations; `library_fn`: one PyTorch call or
         library route for the same function, checked like the plain
-        version; `info`: more keys of the row (a plan); `extra`: more
-        timed routes, name -> fn."""
+        version or by `library_compare(its output, plain output)`;
+        `info`: more keys of the row (a plan); `extra`: more timed
+        routes, name -> fn."""
         out, ref = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         err = compare(out, ref)
@@ -640,7 +680,7 @@ def kernel_phase(torch, T, device):
             nbytes(*inputs, *flat(out)), ops)
         row["library_ms"] = None
         if library_fn is not None:
-            compare(library_fn(), ref)
+            (library_compare or compare)(library_fn(), ref)
             row["library_ms"] = device_ms(torch, library_fn)
         for key, fn in extra.items():
             row[key] = device_ms(torch, fn)
@@ -663,6 +703,23 @@ def kernel_phase(torch, T, device):
     def same(out, ref):
         assert torch.equal(out, ref), "indices differ"
         return 0.0
+
+    def nearest(q, keys):
+        """The library's 1-NN against the plain version's: its pick at the
+        least d2 (built as the kernels build it), up to cdist's own
+        rounding; the picks that differ (ties, near-ties) are counted."""
+        def check(idx, ref):
+            picked = torch.gather(keys, 1, idx[..., None].expand(-1, -1, 3))
+            d = q - picked
+            d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) \
+                + d[..., 2] * d[..., 2]
+            least = ref[1][..., 0]
+            assert (d2 <= least * (1 + 1e-5) + 1e-12).all(), \
+                "the library's 1-NN is not a nearest key"
+            differ = int((idx != ref[0][..., 0]).sum())
+            log(f"  knn k=1 library route: {differ} of {idx.numel()} picks "
+                f"differ from the plain version's, each at its least d2")
+        return check
 
     def wsum_close(out, ref):
         err = (out - ref).abs().max().item()
@@ -691,6 +748,9 @@ def kernel_phase(torch, T, device):
         rows.append((c, case(c["name"], c["label"], call, c["plain"],
                              same if c["name"] == "fps" else same_knn,
                              c["inputs"], c["ops"], info={"plan": c["plan"]},
+                             library_fn=c.get("library"),
+                             library_compare=(nearest(*c["inputs"])
+                                              if "library" in c else None),
                              **extra)))
         if "g_plan" in c:
             rows[-1][1]["g_plan"] = c["g_plan"]
@@ -853,8 +913,9 @@ def stage2_config():
     """`detection_config` with the values of models/demo_stage2.config.json
     (batch_size 10 pairs = 20 clouds of 8192 points, 512 keypoints,
     det_k 16).  That run generated its pairs on the device from presorted
-    clouds; the port's batches are the host-side synthetic pairs, neither
-    presorted nor generated on the device, so those two keys go off."""
+    clouds; phases 6 and 7 feed host-side synthetic pairs, neither
+    presorted nor generated on the device, so those two keys go off here
+    (phase 10 trains with them on, from disk)."""
     from dh3d_tpu_torch import config as cfglib
 
     cfg = cfglib.load_config("models/demo_stage2.config.json")
@@ -1349,6 +1410,251 @@ def card_vs_cpu_extraction(torch, T, device):
     return report
 
 
+def write_train_pool(work, places=12, per_place=3):
+    """`places` * `per_place` seeded lidar-like scans of 30,000 points as
+    .bin files in `work`, with the two GT pickles `train.py` reads under
+    `--data_basedir`: local {i: {"query"}} over every scan, global {i:
+    {"query", "positives", "nonnegtives"}} with the other scans of a
+    place as its positives and the place as its non-negatives (each query:
+    2 positives, 33 possible negatives, and other negatives outside any
+    8 negatives' places)."""
+    from dh3d_tpu_torch.data.io import write_to_bin
+
+    names = [f"scan{i}" for i in range(places * per_place)]
+    for i, name in enumerate(names):
+        write_to_bin(lidar_like_scan(100 + i), os.path.join(work,
+                                                          name + ".bin"))
+    with open(os.path.join(work, "oxford_train_local_gt.pickle"), "wb") as f:
+        pickle.dump({i: {"query": n} for i, n in enumerate(names)}, f)
+    gt = {}
+    for p in range(places):
+        place = list(range(per_place * p, per_place * (p + 1)))
+        for i in place:
+            gt[i] = {"query": names[i],
+                     "positives": [j for j in place if j != i],
+                     "nonnegtives": place}
+    with open(os.path.join(work, "oxford_train_global_gt.pickle"), "wb") as f:
+        pickle.dump(gt, f)
+
+
+def disk_run(torch, label, argv, clouds):
+    """One `python -m dh3d_tpu_torch.train` run in this process (its
+    kernel counts are this process's): the CLI's summary with, beside it,
+    the step time on CUDA events (median of the steps after the first),
+    clouds/s on the host clock over the whole run, each step's wait in
+    `next(batches)` (median after the first) and the share of the run's
+    host-clock time spent waiting there, and peak memory."""
+    from dh3d_tpu_torch.train.__main__ import main as train_main
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    s = train_main(argv)
+    s["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    assert all(map(math.isfinite, s["metrics"].values())), s["metrics"]
+    later = slice(1, None) if s["steps"] > 1 else slice(None)
+    s.update(
+        clouds=clouds, step_ms_median=statistics.median(s["step_ms"][later]),
+        clouds_per_s=clouds * s["steps"] / s["seconds"],
+        wait_ms_median=1e3 * statistics.median(s["wait_s"][later]),
+        wait_share=sum(s["wait_s"]) / s["seconds"])
+    log(f"  {label}: {s['steps']} steps of {clouds} clouds in "
+        f"{s['seconds']:.2f} s (host clock), {s['clouds_per_s']:.2f} "
+        f"clouds/s; step {s['step_ms_median']:.2f} ms (CUDA events, median "
+        f"after the first; all {[round(t, 2) for t in s['step_ms']]}); wait "
+        f"in next(batches) {s['wait_ms_median']:.1f} ms a step, "
+        f"{100 * s['wait_share']:.1f}% of the run's host clock; peak "
+        f"{s['peak_mem_gb']:.2f} GB")
+    return s
+
+
+def loader_ms_per_cloud(cfg, clouds):
+    """Host ms a cloud of the second batch of a fresh `real_batches` stream
+    of `cfg` (no prefetch; the first warms it up): load, normalise (the
+    radius outlier removal on `cKDTree`), augment, presort.  Returns it
+    with the stream's first batch, the run's first."""
+    from dh3d_tpu_torch.train.data import real_batches
+
+    stream = real_batches(cfg, seed=0)
+    first = next(stream)
+    t0 = time.perf_counter()
+    next(stream)
+    return 1e3 * (time.perf_counter() - t0) / clouds, first
+
+
+def loader_split(path, numpts):
+    """Host ms of the loader's parts on one scan file (median of 3): the
+    read, the radius outlier removal alone (`cKDTree`), the whole
+    normalisation `get_fixednum_pcd` (the outlier removal, a random
+    choice of `numpts`), the Jitter augmentation and the Morton presort of
+    one normalised copy."""
+    from dh3d_tpu_torch.data.augment import Jitter
+    from dh3d_tpu_torch.data.io import (get_fixednum_pcd, load_single_pcfile,
+                                        morton_sort_np,
+                                        remove_radius_outlier)
+
+    rng = np.random.RandomState(0)
+    cloud = load_single_pcfile(path)
+    copy = get_fixednum_pcd(cloud, numpts, sortby_dis=False, rng=rng)[0]
+    parts = {
+        "read": partial(load_single_pcfile, path),
+        "outlier_removal": partial(remove_radius_outlier, cloud),
+        "normalise": partial(get_fixednum_pcd, cloud, numpts,
+                             sortby_dis=False, rng=rng),
+        "jitter": partial(Jitter().apply, copy, rng),
+        "presort": partial(morton_sort_np, copy),
+    }
+    out = {}
+    for name, fn in parts.items():
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        out[name] = statistics.median(times)
+    return out
+
+
+def check_pairs(torch, T, batch, pairs, B, N, M):
+    """A pair batch built on the card: anchors unique a cloud and every id
+    in range; points[B:] rotated back by R gives pc2 within 1e-5 of its
+    scale; the positives are the 1-NN of the anchors in the unrotated pc2
+    by `ops.knn_plain`.  Returns the median anchor-positive distance and
+    pc2's median point spacing (its 1-NN distance)."""
+    from dh3d_tpu_torch.data.augment import matmul3
+
+    pc1, pc2 = batch["pc1"], batch["pc2"]
+    ids, R = pairs["sample_inds"], pairs["R"]
+    assert pairs["points"].shape == (2 * B, N, 3) and ids.shape == (2 * B, M)
+    assert int(ids.min()) >= 0 and int(ids.max()) < N, "ids out of range"
+    anc, pos = ids[:B], ids[B:]
+    assert all(len(set(a.tolist())) == M for a in anc), "anchors repeat"
+    assert torch.equal(pairs["points"][:B], pc1)
+    back = matmul3(pairs["points"][B:], R.transpose(1, 2))
+    err = (back - pc2).abs().max().item()
+    assert err <= 1e-5 * pc2.abs().max().item(), err
+    anc_xyz = T.gather_point(pc1, anc).contiguous()
+    want, d2 = T.knn_plain(anc_xyz, pc2, 1)
+    assert torch.equal(pos, want[..., 0]), "positives are not the 1-NN"
+    spacing = T.knn_plain(pc2[:1].contiguous(), pc2[:1].contiguous(), 2)[1]
+    return (math.sqrt(d2.median().item()),
+            math.sqrt(spacing[..., 1].median().item()))
+
+
+def disk_phase(torch, T, work, train_launches, device):
+    """Phase 10: `python -m dh3d_tpu_torch.train --data_basedir` at full
+    width, warm-started from the shipped checkpoints, on a pool of seeded
+    scans: (a) stage 2 as demo_stage2 trained (device pairs from presorted
+    clouds), (b) the host pair path, (c) stage 3 with on-device
+    augmentation.  Returns (launches over one counted step of (a), the
+    card's pairs of (a)'s first batch for phase 11, report)."""
+    from dh3d_tpu_torch.train import (add_draws, make_train_step,
+                                      prepare_batch, to_device)
+    from dh3d_tpu_torch.train.__main__ import (build_config, parse_args,
+                                               step_generator)
+
+    pool = os.path.join(work, "pool")
+    os.makedirs(pool)
+    t0 = time.perf_counter()
+    write_train_pool(pool)
+    log(f"  wrote 36 scans and the GT pickles in "
+        f"{time.perf_counter() - t0:.1f} s")
+    common = ["--data_basedir", pool, "--device", "cuda"]
+    stage2 = ["--cfg", "detection_config", *common, "--load",
+              "models/demo_stage2.npz"]
+    runs = {  # label: (argv, clouds a step)
+        "a stage 2, device pairs": (
+            stage2 + ["--device_pairgen", "--set", "morton_presorted=true",
+                      "--steps", "4"], 20),
+        "b stage 2, host pairs": (stage2 + ["--steps", "2"], 20),
+        "c stage 3, augment on device": (
+            ["--cfg", "global_config", *common, "--load",
+             "models/demo_stage3.npz", "--set", "morton_presorted=true",
+             "--set", "warmup_steps=300", "--set", "augment_on_device=true",
+             "--steps", "2"], 24),
+    }
+    # the loaders alone first: no run's prefetch thread is alive yet
+    argvs, cfgs, loaders, firsts = {}, {}, {}, {}
+    for label, (argv, clouds) in runs.items():
+        argvs[label] = argv + ["--logdir",
+                               os.path.join(work, f"run_{label[0]}")]
+        cfgs[label] = build_config(parse_args(argvs[label]))
+        loaders[label], firsts[label] = loader_ms_per_cloud(cfgs[label],
+                                                            clouds)
+        log(f"  {label}: the loader alone {loaders[label]:.1f} ms a cloud "
+            f"(host clock, its second batch, no prefetch)")
+    split = loader_split(os.path.join(pool, "scan0.bin"), 8192)
+    log(f"  one copy of a cloud, host ms: "
+        f"{ {k: round(v, 1) for k, v in split.items()} } (the normalisation "
+        f"includes the outlier removal)")
+    report = {"loader_split_ms": split}
+    for label, (_, clouds) in runs.items():
+        cfg, first = cfgs[label], firsts[label]
+        report[label] = s = disk_run(torch, label, argvs[label], clouds)
+        s["loader_ms_per_cloud"] = loaders[label]
+        if label[0] == "a":
+            launches = s["launches"][-1]
+            log(f"  launches in one step from disk: {launches}")
+            for name, n in train_launches.items():
+                more = 1 if name in ("fps", "knn") else 0
+                assert launches[name] == n + more, \
+                    (name, launches[name], n, more)
+            # the first batch's pairs, rebuilt on the card
+            batch = to_device(first, "cuda")
+            pairs = prepare_batch(add_draws(
+                batch, cfg, step_generator(1000, 0, "cuda")), cfg)
+            B, N, M = cfg.batch_size, cfg.num_points, cfg.sampled_kpnum
+            dist, spacing = check_pairs(torch, T, batch, pairs, B, N, M)
+            s["anchor_positive_median_m"] = dist
+            s["pc2_spacing_median_m"] = spacing
+            log(f"  pairs of the first batch rebuilt on the card: anchors "
+                f"unique, ids in range, pc2 back from R within 1e-5, "
+                f"positives the plain 1-NN; median anchor-positive "
+                f"{dist:.3f} m, pc2's median spacing {spacing:.3f} m")
+            held = {"pc1": batch["pc1"][:2].contiguous(),
+                    "pc2": batch["pc2"][:2].contiguous()}
+            # the pairs' device time alone, and a profile of one step
+            gen = partial(step_generator, 1000, 0, "cuda")
+            s["pairgen_ms"] = device_ms(torch, lambda: prepare_batch(
+                add_draws(batch, cfg, gen()), cfg))
+            state, step_fn = stage2_state(cfg, device), make_train_step(cfg)
+            step_fn(state, batch, gen())
+            try:
+                s["profile_ms"] = profile_step(
+                    torch, lambda: step_fn(state, batch, gen()))
+            except Exception as e:  # the split is a report, not a check
+                s["profile_ms"] = {"not measured": repr(e)}
+            del state, step_fn
+            log(f"  the pair generation alone: {s['pairgen_ms']:.3f} ms of "
+                f"device time; profile of one step from disk (device ms): "
+                f"{s['profile_ms']}")
+    return launches, held, report
+
+
+def card_vs_cpu_pairgen(torch, device, held):
+    """Phase 11: the pair generation at [2, 8192], 64 anchors, on the card
+    and on the CPU from draws made once on the CPU generator."""
+    from dh3d_tpu_torch.data.pairgen import draw_local_pairs, local_pairs
+
+    B, N, M = 2, held["pc1"].shape[1], 64
+    draws = draw_local_pairs(B, N, math.pi,
+                             torch.Generator(device="cpu").manual_seed(4))
+    out = {}
+    for dev in ("cpu", device):
+        out[str(dev)] = {k: v.cpu() for k, v in local_pairs(
+            held["pc1"].to(dev), held["pc2"].to(dev), M,
+            *(d.to(dev) for d in draws)).items()}
+    cpu, gpu = out["cpu"], out[str(device)]
+    assert torch.equal(cpu["sample_inds"], gpu["sample_inds"]), \
+        "anchors or positives differ between the card and the CPU"
+    err = (cpu["points"] - gpu["points"]).abs().max().item()
+    scale = cpu["points"].abs().max().item()
+    assert err <= 1e-6 * scale, (err, scale)
+    r_err = (cpu["R"] - gpu["R"]).abs().max().item()
+    log(f"  anchors and positives equal; points max abs err {err:.3g} of "
+        f"{scale:.3g}; R {r_err:.3g}")
+    return {"points_max_abs_err": err, "scale": scale, "R_max_abs_err": r_err}
+
+
 def main():
     import torch
 
@@ -1448,6 +1754,16 @@ def main():
     log("phase 9: card vs CPU extraction [1, 16384]")
     extract_report["card_vs_cpu"] = card_vs_cpu_extraction(torch, T, device)
 
+    log("phase 10: training from disk, stage 2 [20, 8192] and stage 3 "
+        "[24, 8192]")
+    with tempfile.TemporaryDirectory() as work:
+        disk_launches, held, disk_report = disk_phase(
+            torch, T, work, train_launches, device)
+
+    log("phase 11: card vs CPU pair generation [2, 8192], 64 anchors")
+    disk_report["card_vs_cpu_pairgen"] = card_vs_cpu_pairgen(torch, device,
+                                                             held)
+
     # `launches`: the count from this slice's path (the NMS extraction)
     # for the kernels it runs, from the train step for E and F
     kernel_rows = []
@@ -1461,13 +1777,15 @@ def main():
                          else train_launches)[name],
             "launches_by_path": {"forward": fwd_launches[name],
                                  "train_step": train_launches[name],
-                                 "extract_local": extract_launches[name]},
+                                 "extract_local": extract_launches[name],
+                                 "train_from_disk": disk_launches[name]},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
             "shape": main_case["shape"], "cases": rows})
     log(json.dumps({"train_step": train_report}))
     log(json.dumps({"extract_local": extract_report}))
+    log(json.dumps({"train_from_disk": disk_report}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": kernel_rows}))

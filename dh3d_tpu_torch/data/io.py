@@ -1,5 +1,5 @@
 """Point-cloud IO and host-side normalisation (copy of the numpy/scipy paths
-of `dh3d_tpu/data/io.py:16-134`).
+of `dh3d_tpu/data/io.py:16-168`).
 
 Voxel downsampling and radius-outlier removal are the numpy / `cKDTree`
 versions of open3d's, with the reference's parameters (`core/utils.py:165-177`:
@@ -124,3 +124,36 @@ def restore_scale_pcd(pcd, knn=3):
     d, _ = cKDTree(pts[:, :3]).query(pts[:, :3], k=knn)
     scale = 0.2 / np.mean(d)
     return pts * scale
+
+
+def morton_sort_np(points, bits=10):
+    """Sort each cloud along the Z-order curve on the host (copy of
+    `dh3d_tpu/data/io.py:137-168`): per cloud, 10-bit quantisation of the
+    box, interleaved codes, a stable argsort.
+
+    points [N, 3] or [B, N, 3] -> sorted copy.  The training loader calls
+    it under `cfg.morton_presorted` (in the prefetch thread), and the
+    model then skips its own sort.  Rotations applied afterwards keep the
+    pairwise distances, so the order stays a good one."""
+    pts = np.asarray(points, np.float32)
+    single = pts.ndim == 2
+    if single:
+        pts = pts[None]
+    lo = pts.min(axis=1, keepdims=True)
+    hi = pts.max(axis=1, keepdims=True)
+    scale = (2 ** bits - 1) / np.maximum(hi - lo, 1e-9)
+    q = np.clip((pts - lo) * scale, 0, 2 ** bits - 1).astype(np.uint32)
+
+    def spread(x):
+        x = x & np.uint32(0x3FF)
+        x = (x | (x << 16)) & np.uint32(0x30000FF)
+        x = (x | (x << 8)) & np.uint32(0x300F00F)
+        x = (x | (x << 4)) & np.uint32(0x30C30C3)
+        x = (x | (x << 2)) & np.uint32(0x9249249)
+        return x
+
+    code = (spread(q[..., 0]) | (spread(q[..., 1]) << np.uint32(1))
+            | (spread(q[..., 2]) << np.uint32(2)))
+    perm = np.argsort(code, axis=1, kind="stable")
+    out = np.take_along_axis(pts, perm[..., None], axis=1)
+    return out[0] if single else out

@@ -1,5 +1,6 @@
-"""Training (counterpart of `dh3d_tpu.train`): the trainer, checkpoints
-and the synthetic batches.  `python -m dh3d_tpu_torch.train` runs it."""
+"""Training (counterpart of `dh3d_tpu.train`): the trainer, checkpoints,
+the synthetic batches and the batches from disk (`train.data`).
+`python -m dh3d_tpu_torch.train` runs it."""
 
 from dh3d_tpu_torch.train.synthetic import (  # noqa: F401
     synthetic_batches,
@@ -8,6 +9,7 @@ from dh3d_tpu_torch.train.synthetic import (  # noqa: F401
 )
 from dh3d_tpu_torch.train.trainer import (  # noqa: F401
     TrainState,
+    add_draws,
     apply_gradients,
     check_config,
     forward_loss,
@@ -17,6 +19,7 @@ from dh3d_tpu_torch.train.trainer import (  # noqa: F401
     make_optimizer,
     make_train_step,
     param_labels,
+    prepare_batch,
     resolve_model,
     restore_state,
     save_checkpoint,

@@ -1,17 +1,28 @@
 """Training entry point of the port: the counterpart of the repository's
 `train.py` (`train.py:110-236`).
 
-    python -m dh3d_tpu_torch.train --cfg detection_config --synthetic \
+    python -m dh3d_tpu_torch.train --cfg detection_config \
+        (--data_basedir DIR | --synthetic) [--device_pairgen] \
         [--steps N] [--logdir DIR] [--load FLAX.npz] [--resume CKPT.pt] \
         [--seed S] [--set key=value ...] [--num_points N] [--batch_size B] \
         [--device cuda|cpu]
 
+Batches come from `.bin` clouds and a GT pickle under `--data_basedir`
+(`train.data.real_batches`, in a prefetch thread when `cfg.prefetch` > 0)
+or, with `--synthetic`, from generated self pairs.  Each step gets two
+generators on the device, seeded from (1000 + seed, step) for the pair
+generation and (2000 + seed, step) for the augmentation: the counterpart
+of `jax.random.fold_in(key, step)` (`train.py:202-212`), so a resumed run
+draws what an unbroken run draws at that step.
+
 Writes `config.json` and `metrics.jsonl` into the logdir, prints the
 metrics every 50 steps and at the last step, and saves a checkpoint every
-`savemodel_every_k_steps` steps and at the end (`<logdir>/ckpt/`).  Only
-synthetic batches so far (`--synthetic`); data loading is not ported.
-`--device` defaults to cuda and raises when there is no CUDA device; the
-CPU (the kernels' plain versions) runs only when asked for.
+`savemodel_every_k_steps` steps and at the end (`<logdir>/ckpt/`).
+`main` returns a summary: the steps, the host-clock seconds of the loop,
+each step's wait in `next(batches)`, its time on CUDA events (on a CUDA
+device) and its kernel launches, and the last metrics.  `--device`
+defaults to cuda and raises when there is no CUDA device; the CPU (the
+kernels' plain versions) runs only when asked for.
 """
 
 from __future__ import annotations
@@ -24,8 +35,11 @@ import time
 import torch
 
 from dh3d_tpu_torch import config as cfglib
+from dh3d_tpu_torch import kernels
+from dh3d_tpu_torch.data.prefetch import ThreadedPrefetcher
 from dh3d_tpu_torch.nn.convert import load_npz, smart_init
 from dh3d_tpu_torch.train import trainer
+from dh3d_tpu_torch.train.data import real_batches
 from dh3d_tpu_torch.train.synthetic import synthetic_batches
 
 
@@ -41,8 +55,15 @@ def parse_args(argv=None):
                    help="checkpoint .pt of this trainer for exact resume")
     p.add_argument("--steps", type=int, default=2000)
     p.add_argument("--seed", type=int, default=0,
-                   help="seeds the model init and the synthetic batches")
+                   help="seeds the model init, the data sampler and the "
+                        "pair-generation and augmentation generators")
     p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--data_basedir", default=None,
+                   help=".bin clouds and oxford_train_{local,global}_gt"
+                        ".pickle")
+    p.add_argument("--device_pairgen", action="store_true",
+                   help="build the self pairs (rotation, FPS anchors, 1-NN "
+                        "positives) in the train step")
     p.add_argument("--num_points", type=int, default=None)
     p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--device", default="cuda")
@@ -53,9 +74,11 @@ def parse_args(argv=None):
 
 def build_config(args):
     cfg = cfglib.get_config(args.cfg)
-    for key in ("num_points", "batch_size"):
+    for key in ("data_basedir", "num_points", "batch_size"):
         if getattr(args, key) is not None:
             cfg[key] = getattr(args, key)
+    if args.device_pairgen:
+        cfg.device_pairgen = True
     for kv in args.set:
         key, _, value = kv.partition("=")
         try:
@@ -66,22 +89,37 @@ def build_config(args):
     return cfg
 
 
+def step_generator(base: int, step: int, device) -> torch.Generator:
+    """A generator on `device` seeded from (base, step): the counterpart
+    of `jax.random.fold_in(jax.random.PRNGKey(base), step)`."""
+    g = torch.Generator(device=device)
+    g.manual_seed((base << 32) | step)
+    return g
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if not args.synthetic:
-        raise NotImplementedError(
-            "data loading is not ported yet: run with --synthetic")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but torch.cuda.is_available() is "
                            "False (use --device cpu to train on the CPU)")
     cfg = build_config(args)
     trainer.check_config(cfg)
+    if not args.synthetic and not cfg.data_basedir:
+        raise ValueError("no training data: give --data_basedir DIR (.bin "
+                         "clouds and the GT pickle) or --synthetic")
 
     logdir = args.logdir or os.path.join(
         "train_log", f"{args.cfg}_{time.strftime('%m%d-%H%M%S')}")
     os.makedirs(logdir, exist_ok=True)
     cfglib.save_config(cfg, os.path.join(logdir, "config.json"))
+
+    if args.synthetic:
+        batches = synthetic_batches(cfg, args.seed)
+    else:
+        batches = real_batches(cfg, args.seed)
+        if (cfg.prefetch or 0) > 0:
+            batches = ThreadedPrefetcher(batches, depth=cfg.prefetch)
 
     state = trainer.init_state(cfg, args.seed, device)
     if args.resume:
@@ -92,15 +130,34 @@ def main(argv=None):
         print(f"warm start: restored {n} tensors from {args.load}")
     print(f"device: {device}; logdir: {logdir}")
 
-    batches = synthetic_batches(cfg, args.seed)
     step_fn = trainer.make_train_step(cfg)
     every = int(cfg.savemodel_every_k_steps or 0)
+    timed = device.type == "cuda"
+    summary = {"steps": args.steps, "wait_s": [], "launches": [],
+               "events": []}
     t0 = time.time()
     start = state.step
     with open(os.path.join(logdir, "metrics.jsonl"), "a") as log:
         for i in range(start, start + args.steps):
-            batch = trainer.to_device(next(batches), device)
-            metrics = step_fn(state, batch)
+            t_wait = time.perf_counter()
+            raw = next(batches)
+            summary["wait_s"].append(time.perf_counter() - t_wait)
+            before = kernels.counts()
+            if timed:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+            batch = trainer.to_device(raw, device)
+            pairgen = (step_generator(1000 + args.seed, i, device)
+                       if "pc1" in batch else None)
+            augment = (step_generator(2000 + args.seed, i, device)
+                       if cfg.augment_on_device else None)
+            metrics = step_fn(state, batch, pairgen, augment)
+            if timed:
+                ev[1].record()
+                summary["events"].append(ev)
+            after = kernels.counts()
+            summary["launches"].append(
+                {k: after[k] - before[k] for k in after})
             last = i == start + args.steps - 1
             if i % 50 == 0 or last:
                 m = {k: round(float(v), 5) for k, v in metrics.items()}
@@ -113,6 +170,14 @@ def main(argv=None):
                 path = trainer.save_checkpoint(
                     os.path.join(logdir, "ckpt"), state, i + 1)
                 print(f"saved {path}", flush=True)
+    if timed:
+        torch.cuda.synchronize(device)
+    summary["seconds"] = time.time() - t0
+    summary["step_ms"] = [a.elapsed_time(b)
+                          for a, b in summary.pop("events")] or None
+    summary["metrics"] = ({k: float(v) for k, v in metrics.items()}
+                          if args.steps else {})
+    return summary
 
 
 if __name__ == "__main__":

@@ -19,13 +19,18 @@ Semantics kept from the JAX trainer, which uses optax:
   - the clip is optax's: g unchanged when |g| < max, else g / |g| * max.
 The step runs eagerly on whatever device the model lives on; on CUDA every
 neighbourhood op and its backward is a hand-written kernel
-(`ops/neighborhood.py`).
+(`ops/neighborhood.py`).  Before the forward it augments a batch on the
+device (`augment_on_device`) and builds the self pairs of a {pc1, pc2}
+batch (`device_pairgen`: FPS on kernel B, the 1-NN on kernel A), from
+draws made by two generators the caller passes (`add_draws`,
+`prepare_batch`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import glob
+import math
 import os
 from typing import Callable
 
@@ -34,13 +39,14 @@ from torch import nn
 
 from dh3d_tpu_torch import config as cfglib
 from dh3d_tpu_torch.config import dotdict
+from dh3d_tpu_torch.data.augment import draw_augment, torch_augment
+from dh3d_tpu_torch.data.pairgen import draw_local_pairs, local_pairs
 from dh3d_tpu_torch.losses import compute_total_loss
 from dh3d_tpu_torch.nn.convert import load_flax, load_npz
 from dh3d_tpu_torch.nn.model import DH3D, frozen_groups
 
 # config keys of the JAX trainer that this port does not run yet
-_UNPORTED = ("device_pairgen", "augment_on_device", "remat",
-             "cross_device_mining", "bn_axis_name")
+_UNPORTED = ("remat", "cross_device_mining", "bn_axis_name")
 
 
 def check_config(cfg) -> None:
@@ -119,13 +125,64 @@ def init_state(cfg, seed: int = 0, device="cpu") -> TrainState:
 
 
 def to_device(batch: dict, device) -> dict:
-    """A numpy batch (`train.synthetic`) as tensors on `device`: points
-    and R f32, sample_inds int64."""
+    """A numpy batch (`train.synthetic`, `train.data`) as tensors on
+    `device`: points, pc1, pc2 and R f32, sample_inds int64."""
     out = {}
     for k, v in batch.items():
         t = torch.as_tensor(v)
         t = t.long() if k == "sample_inds" else t.float()
         out[k] = t.to(device).contiguous()
+    return out
+
+
+def add_draws(batch: dict, cfg, pairgen: torch.Generator | None = None,
+              augment: torch.Generator | None = None) -> dict:
+    """The batch with the draws its preparation on the device needs, from
+    generators on the batch's device (`trainer.py:147-191` splits its
+    `pairgen_key` and `aug_key` likewise):
+      - a {pc1, pc2} batch: `pairgen_draws` (`data.pairgen.draw_local_pairs`)
+        from `pairgen`, which it then needs;
+      - with `cfg.augment_on_device` and an `augment` generator,
+        `aug_draws` (`data.augment.draw_augment` of `cfg.data_aug`) for
+        every cloud of a {pc1, pc2} batch (both copies) or of a global
+        `points` batch.  A host-paired local batch gets none: its
+        correspondences were built from clouds already augmented
+        (`train.py:205-212`).
+    Draws the batch already holds are kept (a test hands in JAX's)."""
+    out = dict(batch)
+    local = "pc1" in batch
+    if local and "pairgen_draws" not in out:
+        if pairgen is None:
+            raise ValueError("a {pc1, pc2} batch needs a pair-generation "
+                             "generator (or its pairgen_draws)")
+        B, N, _ = batch["pc1"].shape
+        rot_maxv = cfg.rot_maxv if cfg.rot_maxv is not None else math.pi
+        out["pairgen_draws"] = draw_local_pairs(B, N, rot_maxv, pairgen)
+    if (cfg.augment_on_device and augment is not None
+            and "aug_draws" not in out
+            and (local or not cfg.training_local)):
+        pts = batch["pc1"] if local else batch["points"]
+        shape = (2 * pts.shape[0], *pts.shape[1:]) if local else pts.shape
+        out["aug_draws"] = draw_augment(tuple(cfg.data_aug), shape, augment)
+    return out
+
+
+def prepare_batch(batch: dict, cfg) -> dict:
+    """Apply a batch's draws (`add_draws`): augment the clouds, then, for a
+    {pc1, pc2} batch, build the self pairs on the device
+    (`trainer.py:147-191`).  Returns the model's batch: points,
+    sample_inds and R for local training, points for global."""
+    out = dict(batch)
+    aug = out.pop("aug_draws", None)
+    if "pc1" in out:
+        pc1, pc2 = out.pop("pc1"), out.pop("pc2")
+        if aug is not None:  # each copy its own draws, before the pairs
+            both = torch_augment(torch.cat([pc1, pc2]), aug)
+            pc1, pc2 = both[:pc1.shape[0]], both[pc1.shape[0]:]
+        angles, subsets = out.pop("pairgen_draws")
+        out.update(local_pairs(pc1, pc2, cfg.sampled_kpnum, angles, subsets))
+    elif aug is not None:
+        out["points"] = torch_augment(out["points"], aug)
     return out
 
 
@@ -161,13 +218,18 @@ def apply_gradients(state: TrainState, cfg) -> None:
 
 
 def make_train_step(cfg):
-    """train_step(state, batch) -> metrics: one forward in train mode, the
-    losses, the backward and one optimizer update, in place on `state`.
-    The metrics are detached scalar tensors (reading them syncs)."""
+    """train_step(state, batch, pairgen=None, augment=None) -> metrics: the
+    batch's preparation on the device (`add_draws` from the two generators,
+    `prepare_batch`), one forward in train mode, the losses, the backward
+    and one optimizer update, in place on `state`.  The metrics are
+    detached scalar tensors (reading them syncs)."""
     check_config(cfg)
     cfg = dotdict(dict(cfg))
 
-    def train_step(state: TrainState, batch: dict) -> dict:
+    def train_step(state: TrainState, batch: dict,
+                   pairgen: torch.Generator | None = None,
+                   augment: torch.Generator | None = None) -> dict:
+        batch = prepare_batch(add_draws(batch, cfg, pairgen, augment), cfg)
         state.model.train()
         total, metrics, _ = forward_loss(state.model, cfg, batch)
         state.optimizer.zero_grad(set_to_none=True)

@@ -784,3 +784,50 @@ def test_train_step_builds_each_inverse_once(device, monkeypatch):
     assert kernels.WEIGHTED_SUM.launches == 2
     assert kernels.NEIGHBOR_MAX.launches == 3
     assert len(built) == 3 and len({id(t) for t in built}) == 3
+
+
+def test_pairgen_on_card_equals_cpu_and_launches_b_and_a(device):
+    """`data.pairgen.local_pairs` on draws made once on the CPU: the same
+    anchors and positives on the card as on the CPU, points within 1e-6 of
+    their scale; on the card it launches B (the anchors' FPS) and A (the
+    1-NN) once each.  `device_local_pairs` draws from a generator on the
+    card."""
+    from dh3d_tpu_torch.data.pairgen import (device_local_pairs,
+                                             draw_local_pairs, local_pairs)
+
+    rng = np.random.RandomState(2)
+    pc1 = rng.randn(2, 3000, 3).astype(np.float32) * 20
+    pc2 = (pc1[:, rng.permutation(3000)]
+           + rng.randn(2, 3000, 3).astype(np.float32) * 0.05)
+    draws = draw_local_pairs(2, 3000, np.pi,
+                             torch.Generator().manual_seed(0))
+    cpu = local_pairs(torch.from_numpy(pc1), torch.from_numpy(pc2), 64,
+                      *draws)
+    before = (kernels.FPS.launches, kernels.KNN.launches)
+    card = local_pairs(torch.from_numpy(pc1).to(device),
+                       torch.from_numpy(pc2).to(device), 64,
+                       *(d.to(device) for d in draws))
+    torch.cuda.synchronize()
+    assert (kernels.FPS.launches, kernels.KNN.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(card["sample_inds"].cpu(), cpu["sample_inds"])
+    _close(card["points"].cpu(), cpu["points"], rel=1e-6)
+    g = torch.Generator(device=device).manual_seed(1)
+    out = device_local_pairs(torch.from_numpy(pc1).to(device),
+                             torch.from_numpy(pc2).to(device), 64, np.pi, g)
+    assert out["sample_inds"].device.type == "cuda"
+
+
+def test_device_augment_on_card_equals_cpu(device):
+    """`torch_augment` of the global preset's augmentations on draws made
+    on the CPU: the card's clouds within 1e-6 of their scale."""
+    from dh3d_tpu_torch.data.augment import draw_augment, torch_augment
+
+    pts = torch.from_numpy(
+        np.random.RandomState(3).randn(4, 2000, 3).astype(np.float32) * 20)
+    draws = draw_augment(("Rotate1D", "Jitter", "RotateSmall", "Scale",
+                          "Shift"), pts.shape, torch.Generator().manual_seed(0))
+    cpu = torch_augment(pts, draws)
+    card = torch_augment(pts.to(device), [(n, d.to(device))
+                                          for n, d in draws])
+    _close(card.cpu(), cpu, rel=1e-6)

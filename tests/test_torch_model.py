@@ -197,6 +197,8 @@ def test_port_imports_no_jax():
         "import dh3d_tpu_torch.eval.retrieval, dh3d_tpu_torch.evaluate\n"
         "import dh3d_tpu_torch.evaluate.localdesc_extract\n"
         "import dh3d_tpu_torch.evaluate.globaldesc_extract\n"
+        "import dh3d_tpu_torch.data.augment, dh3d_tpu_torch.data.pairgen\n"
+        "import dh3d_tpu_torch.data.prefetch, dh3d_tpu_torch.train.data\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'flax', 'dh3d_tpu', 'sklearn'))\n"
         "assert not bad, bad\n")

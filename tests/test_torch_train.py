@@ -46,6 +46,7 @@ from dh3d_tpu_torch.train import (
     lr_schedule,
     make_train_step,
     param_labels,
+    prepare_batch,
     resolve_model,
     restore_state,
     save_checkpoint,
@@ -253,13 +254,21 @@ def _jax_step(jc, variables, batch):
     return metrics, bs, grads
 
 
-def _compare_step(name, variables, batch):
+def _compare_step(name, variables, batch, port_batch=None, **overrides):
+    """One step of both on `batch`; the port's on `port_batch` when given
+    (the batch without JAX's keys, with the draws they make), through
+    `prepare_batch`.  `overrides`: config keys set on both sides."""
     jc, tc = configs(name)
+    for c in (jc, tc):
+        c.update(overrides)
     jm, jbs, jg = _jax_step(jc, variables, batch)
     state = init_state(tc, 0)
     load_flax(state.model, flatten_variables(variables))
     state.model.train()
-    total, tm, _ = forward_loss(state.model, tc, to_device(batch, "cpu"))
+    if port_batch is None:
+        port_batch = to_device(batch, "cpu")
+    total, tm, _ = forward_loss(state.model, tc,
+                                prepare_batch(port_batch, tc))
     total.backward()
 
     for k, v in tm.items():  # every metric, a relative 1e-5 of the total
@@ -413,16 +422,22 @@ def test_smart_init_partial_load():
 
 
 def test_unported_options_raise():
+    """What the port still refuses; device_pairgen and augment_on_device
+    run since the training data path was ported (`tests/test_torch_data.py`
+    holds them to the JAX trainer)."""
     from dh3d_tpu_torch.train import check_config
 
-    for key, value in (("device_pairgen", True), ("augment_on_device", True),
-                       ("remat", True), ("cross_device_mining", True),
+    for key, value in (("remat", True), ("cross_device_mining", True),
                        ("bn_axis_name", "data"),
                        ("compute_dtype", "bfloat16")):
         cfg = tcfg.get_config("detection_config")
         cfg[key] = value
         with pytest.raises(NotImplementedError):
             check_config(cfg)
+    for key in ("device_pairgen", "augment_on_device"):
+        cfg = tcfg.get_config("detection_config")
+        cfg[key] = True
+        check_config(cfg)
 
 
 def _train_cli(*args, cwd=REPO):
@@ -463,13 +478,16 @@ def test_train_entry_point_runs_and_resumes(tmp_path, capsys):
 
 
 def test_train_entry_point_refuses_what_it_cannot_do(tmp_path):
-    with pytest.raises(NotImplementedError, match="--synthetic"):
+    with pytest.raises(ValueError, match="--data_basedir"):
         train_main(["--cfg", "detection_config", "--device", "cpu",
                     "--logdir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="device_pairgen"):
-        train_main(["--cfg", "detection_config", "--synthetic", "--device",
-                    "cpu", "--set", "device_pairgen=true", "--logdir",
-                    str(tmp_path)])
+    for key, value in (("remat", "true"), ("cross_device_mining", "true"),
+                       ("bn_axis_name", '"data"'),
+                       ("compute_dtype", '"bfloat16"')):
+        with pytest.raises(NotImplementedError, match=key):
+            train_main(["--cfg", "detection_config", "--synthetic",
+                        "--device", "cpu", "--set", f"{key}={value}",
+                        "--logdir", str(tmp_path)])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             train_main(["--cfg", "detection_config", "--synthetic",
