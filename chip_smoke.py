@@ -18,7 +18,10 @@ result line:
      its bound (`bound`: the bytes of its inputs and outputs over the
      memory rate or its f32 operations over the f32 rate, whichever is
      larger) and, where PyTorch has one, the library route for the same
-     function (`library_ms`).  Kernels C and D run at
+     function (`library_ms`).  Each kernel's first case is at the
+     relocalisation's shapes (phase 12: batch 1, N=4096, its FPS to 512,
+     and its NMS's 50-NN), whose numbers the kernels line reports for the
+     kernels that path runs.  Kernels C and D run at
      every shape of the forward (`forward_cases`: the moments through
      `flex_moments`, which must give the bits of `weighted_sum` on the
      weight tensor; D with and without its ids and its slot, and once on
@@ -104,6 +107,28 @@ result line:
  11. the pair generation at [2, 8192], 64 anchors, on the card and on the
      CPU from the same draws: anchors and positives equal, points within
      1e-6 of their scale.
+ 12. 6DoF relocalisation through the port's CLI
+     (`dh3d_tpu_torch.evaluate.relocalize.main`, in this process) with its
+     defaults (N=4096, batch 1, 256 NMS keypoints, 500 RANSAC hypotheses),
+     `models/demo_stage2` (local) and `models/demo_stage3` (global), on 12
+     seeded lidar-like database scans of 30,000 points and 4 queries made
+     from them by a rigid motion and jitter, with their GT pickles.
+     Kernels A, B, C, D and G must each be launched over the run; every
+     global and local descriptor finite and of unit norm; >= 3 mutual
+     matches a query.  Clouds/s, ms a cloud (load + normalise, global
+     forward), ms a query (local forwards, NMS, matching, RANSAC), launches
+     a query, peak memory.  Then `registration_eval --self_test` on a
+     keypoint file of phase 8 (success, RTE < 1e-6 m, RRE < 1e-4 deg);
+     `registration_eval --pairs` on the extractions of a scan and a
+     rigidly moved copy with its T_gt (reported: the demo weights never
+     saw these scans); `repeatability_eval --protocol both` on 4 scans.
+ 13. (a) mutual matching and RANSAC of phase 12's pair on the card and on
+     the CPU: the same matches and inlier sets, R and t within 1e-9, and
+     the same as the JAX package's host loop (`ransac_host_loop`), whose
+     time is given beside the batched RANSAC's; (b) the relocalisation CLI
+     on 2 queries and 4 database clouds on the card and with `--device
+     cpu`: the same top-1 and NMS keypoints; the queries whose matches or
+     inliers differ are counted (reported, not checked).
 The last three lines: the card, the kernels JSON, the ok JSON.
 
 To compare two trees of the port on one card (run them in turns: parent,
@@ -230,6 +255,12 @@ TRAIN_KERNELS = FORWARD_KERNELS + ("weighted_sum_backward",
                                    "flex_moments_backward",
                                    "neighbor_max_backward")
 NMS = {"k": 50, "radius": 0.5, "ratio": 0.01, "max_kp": 512}  # CLI defaults
+# Phase 12: the relocalisation CLI's defaults, its database and queries
+RELOC = {"num_points": 4096, "nms_max_kp": 256, "ransac_iters": 500,
+         "db": 12, "queries": 4, "source_every": 3}
+# the moved copies: a query from its database scan, the pairs file's copy
+QUERY_MOTION = (0.2, (1.5, -1.0, 0.0))  # z-rotation (rad), translation (m)
+PAIR_MOTION = (0.5, (3.0, -2.0, 0.5))
 
 
 def log(*args):
@@ -329,6 +360,27 @@ def train_geometry(torch, T, device):
             T.three_nn(pts, sub))
 
 
+def reloc_geometry(torch, T, device):
+    """The relocalisation forward's neighbourhoods (phase 12's path, batch
+    1): a database scan through `GlobalTestDataset`'s normalisation
+    [1, 4096] in loader order (NMS's input), Morton-sorted, its FPS
+    subsample [1, 512] (ids sorted), the self kNN k=8 at both levels, and
+    the 3-NN map (d2, idx) from the points to the subsample."""
+    from dh3d_tpu_torch.data.io import get_fixednum_pcd
+
+    N, M, K = RELOC["num_points"], RELOC["num_points"] // 8, 8
+    cloud, _ = get_fixednum_pcd(lidar_like_scan(300, extent=15.0), N,
+                                randsample=True, sortby_dis=True,
+                                rng=np.random.RandomState(0))
+    raw = torch.from_numpy(cloud[None]).to(device)
+    perm, _ = T.morton_perm(raw)
+    pts = torch.gather(raw, 1, perm[..., None].expand(-1, -1, 3)).contiguous()
+    sub_idx = torch.sort(T.farthest_point_sample(pts, M), dim=-1).values
+    sub = T.gather_point(pts, sub_idx).contiguous()
+    return (raw, pts, sub, T.knn(pts, pts, K)[0], T.knn(sub, sub, K)[0],
+            T.three_nn(pts, sub))
+
+
 def backward_cases(torch, T, device):
     """Kernels E and F at every shape of the `detection_config` train step
     ([20, 8192], 512 keypoints), and E once on random ids, on seeded inputs
@@ -402,7 +454,8 @@ def row_plans(T, C, K):
 
 
 def forward_cases(torch, T, device):
-    """Kernels C and D at every shape of the forward (and D as the train
+    """Kernels C and D at every shape of the relocalisation forward (first,
+    D as that path calls it) and of the forward (and D as the train
     step calls it), and C once on random ids, on seeded inputs that are the
     same on every tree of the port.  One dict a case: `name` (the kernel),
     `label`; `call`, the op as the tree's path calls it, returning a tuple
@@ -428,6 +481,17 @@ def forward_cases(torch, T, device):
     w1 = torch.ones(B, N, K, 1, device=device)
     w1[:, :, 0] = 1 - K
     w3 = T.inverse_distance_weights(d2_3)[..., None].contiguous()
+    # the relocalisation forward's, batch 1 (phase 12's path, listed first)
+    _, rpts, rsub, rnbh, rnbh1, (rd2_3, ridx3) = reloc_geometry(torch, T,
+                                                                 device)
+    rN, rM = rpts.shape[1], rsub.shape[1]
+    rfeats = {(n, c): torch.randn(1, n, c, generator=g).to(device)
+              for n, c in ((rN, 32), (rN, 64), (rM, 64), (rM, 128),
+                           (rM, 256))}
+    rw1 = torch.ones(1, rN, K, 1, device=device)
+    rw1[:, :, 0] = 1 - K
+    rw3 = T.inverse_distance_weights(rd2_3)[..., None].contiguous()
+    R = " (relocalisation)"
     has_moments = hasattr(T, "flex_moments")
     has_arg = "with_arg" in inspect.signature(T.neighbor_max).parameters
     cases = []
@@ -437,6 +501,10 @@ def forward_cases(torch, T, device):
         return tuple(t for t in out if t is not None)
 
     for label, f, pos, idx in (
+            (f"P=4 C=64 K=8 [1,{rN}]{R}", rfeats[rN, 64], rpts, rnbh),
+            (f"P=4 C=32 K=8 [1,{rN}]{R}", rfeats[rN, 32], rpts, rnbh),
+            (f"P=4 C=64 K=8 [1,{rM}]{R}", rfeats[rM, 64], rsub, rnbh1),
+            (f"P=4 C=128 K=8 [1,{rM}]{R}", rfeats[rM, 128], rsub, rnbh1),
             (f"P=4 C=64 K=8 [{B},{N}]", feats[N, 64], pts, nbh),
             (f"P=4 C=32 K=8 [{B},{N}]", feats[N, 32], pts, nbh),
             (f"P=4 C=64 K=8 [{B},{M}]", feats[M, 64], sub, nbh1),
@@ -460,6 +528,11 @@ def forward_cases(torch, T, device):
                 T.weighted_sum(f, idx, w)),
             weights=partial(T.flex_weights, pos, idx), sparse=(idx, w, f)))
     for label, f, idx, w in (
+            (f"P=1 C=256 K=3 [1,{rN}]<-[1,{rM}]{R}", rfeats[rM, 256], ridx3,
+             rw3),
+            (f"P=1 C=128 K=3 [1,{rN}]<-[1,{rM}]{R}", rfeats[rM, 128], ridx3,
+             rw3),
+            (f"P=1 C=3 K=8 [1,{rN}] (raw xyz){R}", rpts, rnbh, rw1),
             (f"P=1 C=256 K=3 [{B},{N}]<-[{B},{M}]", feats[M, 256], idx3, w3),
             (f"P=1 C=128 K=3 [{B},{N}]<-[{B},{M}]", feats[M, 128], idx3, w3),
             (f"P=1 C=3 K=8 [{B},{N}] (raw xyz)", pts, nbh, w1)):
@@ -478,13 +551,18 @@ def forward_cases(torch, T, device):
     noisy = feats[N, 64].clone()
     noisy[torch.rand(B, N, 64, generator=g).to(device) < 0.01] = float("nan")
     for label, f, idx, nan in (
+            (f"C=64 K=8 [1,{rN}]{R}", rfeats[rN, 64], rnbh, None),
+            (f"C=32 K=8 [1,{rN}]{R}", rfeats[rN, 32], rnbh, None),
+            (f"C=128 K=8 [1,{rM}]{R}", rfeats[rM, 128], rnbh1, None),
             (f"C=64 K=8 [{B},{N}]", feats[N, 64], nbh, False),
             (f"C=32 K=8 [{B},{N}]", feats[N, 32], nbh, False),
             (f"C=128 K=8 [{B},{M}]", feats[M, 128], nbh1, False),
             (f"C=64 K=8 [{B},{N}] 1% NaN", noisy, nbh, True)):
         for ids, slot in ((False, False), (False, True), (True, False),
                           (True, True)):
-            if nan and (ids, slot) != (True, True):
+            # the NaN case with ids and slot; the eval path's value only
+            if (nan and (ids, slot) != (True, True)) or (
+                    nan is None and (ids or slot)):
                 continue
             fn = T.neighbor_max_with_slot if slot else T.neighbor_max
             kw = {"with_arg": ids} if has_arg else {}
@@ -497,8 +575,8 @@ def forward_cases(torch, T, device):
                 return tuple(out[i] for i in keep)  # the ids written, unread
 
             cases.append(dict(
-                name="neighbor_max", nan=nan, inputs=(f, idx), C=f.shape[-1],
-                K=K, ops=idx.numel() * f.shape[-1],
+                name="neighbor_max", nan=bool(nan), inputs=(f, idx),
+                C=f.shape[-1], K=K, ops=idx.numel() * f.shape[-1],
                 label=label + " +id" * ids + " +slot" * slot, call=call,
                 plain=lambda f=f, idx=idx, keep=keep: tuple(
                     T.neighbor_max_plain(f, idx)[i] for i in keep),
@@ -523,8 +601,8 @@ def plan_of(T, name, *shape):
 
 
 def knn_fps_cases(torch, T, device):
-    """Kernels A, G and B at every shape of the path, on seeded inputs that
-    are the same on every tree of the port.  One dict a case: `name` (the
+    """Kernels A, G and B at every shape of the paths (the relocalisation's
+    first), on seeded inputs that are the same on every tree of the port.  One dict a case: `name` (the
     kernel the path takes: A up to k = 7, G from k = 8; a tree from before
     G took k = 8-32 runs A there, which is how `--ab-root` times G against
     A), `label`; `call`, the op as the path calls it (the tree's own plan,
@@ -566,22 +644,32 @@ def knn_fps_cases(torch, T, device):
     half = T.gather_point(pts[:P2], torch.stack(
         [torch.randperm(N, generator=g)[:N // 2] for _ in range(P2)]
     ).to(device)).contiguous()
+    # the relocalisation forward's and its NMS's, batch 1 (listed first)
+    rraw, rpts, rsub = reloc_geometry(torch, T, device)[:3]
+    rN, rM, R = rpts.shape[1], rsub.shape[1], " (relocalisation)"
     has_g = hasattr(T, "topk_prepass")
     cases = []
     for name, label, q, keys, k in (
-            # A: the 3-NN of the forward and of the extraction forward, the
-            # pair generation's 1-NN
+            # A: the 3-NN of the relocalisation, the forward and the
+            # extraction forward, the pair generation's 1-NN
+            ("knn", f"cross k=3 [1,{rN}]->[1,{rM}]{R}", rpts, rsub, 3),
             ("knn", f"cross k=3 [{B},{N}]->[{B},{M}]", pts, sub, 3),
             ("knn", "cross k=3 [1,16384]->[1,2048] (extraction)", lidar_m,
              lidar_sub, 3),
             ("knn", f"cross k=1 [{P2},{KP}]x[{P2},{N}] (pairgen)", anchors,
              pts[:P2].contiguous(), 1),
-            # G: the self kNN k=8 of the forward, the train step and the
-            # extraction forward, the detection loss's k=16; keypoint NMS's
+            # G: the self kNN k=8 at both levels of the relocalisation and
+            # its NMS's 50-NN (loader order); the self kNN k=8 of the
+            # forward, the train step and the extraction forward, the
+            # detection loss's k=16; keypoint NMS's
             # 50-NN of a normalised lidar eval cloud in loader order (its
             # call), the same cloud in Morton order, an undersized scan the
             # loader pads with 1e5 sentinels (at NMS's k and at the
             # forward's), the dso size, cross queries, G's k above 64
+            ("knn_topk", f"self k=8 [1,{rN}]{R}", rpts, rpts, 8),
+            ("knn_topk", f"self k=8 [1,{rM}]{R}", rsub, rsub, 8),
+            ("knn_topk", f"self k=50 [1,{rN}] (relocalisation NMS)", rraw,
+             rraw, 50),
             ("knn_topk", f"self k=8 [{B},{N}]", pts, pts, 8),
             ("knn_topk", f"self k=8 [{B},{M}]", sub, sub, 8),
             ("knn_topk", f"cross k=16 [{P2},{KP}]->[{P2},{N}]", kp,
@@ -617,7 +705,8 @@ def knn_fps_cases(torch, T, device):
                 q, keys, k, plan=p), plans=(0, 1),
                 prepass=partial(T.topk_prepass, q, keys))
         cases.append(c)
-    for label, p, m in ((f"[{B},{N}]->{M}", pts, M),
+    for label, p, m in ((f"[1,{rN}]->{rM}{R}", rpts, rM),
+                        (f"[{B},{N}]->{M}", pts, M),
                         (f"[{P2},{N // 2}]->{KP} (pairgen)", half, KP),
                         (f"[{B},{M}]->{M} (chain floor)", sub, M),
                         ("[1,16384]->2048", lidar, 2048),
@@ -1655,6 +1744,298 @@ def card_vs_cpu_pairgen(torch, device, held):
     return {"points_max_abs_err": err, "scale": scale, "R_max_abs_err": r_err}
 
 
+def moved(cloud, motion, seed, jitter=0.02):
+    """cloud @ R.T + t (+ jitter) for the z-rotation and translation of
+    `motion`; returns (moved cloud, R, t)."""
+    ang, t = motion
+    c, s = math.cos(ang), math.sin(ang)
+    R = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+    t = np.asarray(t, np.float64)
+    noise = np.random.RandomState(seed).randn(*cloud.shape) * jitter
+    return (cloud @ R.T + t + noise).astype(np.float32), R, t
+
+
+def write_reloc_pool(work):
+    """The relocalisation data in `work`: `RELOC["db"]` seeded lidar-like
+    scans of 30,000 points over 30 m x 30 m (`extent` 15: on the open
+    ground of wider scans the demo detector's attention saturates and NMS
+    keeps few keypoints) at places 10 m apart, and `RELOC["queries"]`
+    queries, query j database scan 3j moved by QUERY_MOTION with 0.02 m
+    jitter, 2 m from it; GT pickles ({seq: [{query, northing, easting}]})
+    db.pickle and query.pickle over all of them, and db4.pickle /
+    query2.pickle over the first 4 and 2 (phase 13).  Returns the .bin
+    directory."""
+    from dh3d_tpu_torch.data.io import write_to_bin
+
+    pcd = os.path.join(work, "pcd")
+    os.makedirs(pcd)
+    scans = [lidar_like_scan(300 + i, extent=15.0)
+             for i in range(RELOC["db"])]
+    for i, scan in enumerate(scans):
+        write_to_bin(scan, os.path.join(pcd, f"db{i}.bin"))
+    for j in range(RELOC["queries"]):
+        src = RELOC["source_every"] * j
+        write_to_bin(moved(scans[src], QUERY_MOTION, j)[0],
+                     os.path.join(pcd, f"query{j}.bin"))
+
+    def gt(name, seq, items):
+        with open(os.path.join(work, name), "wb") as f:
+            pickle.dump({seq: [{"query": q, "northing": n, "easting": 0.0}
+                               for q, n in items]}, f)
+
+    db = [(f"db{i}", 10.0 * i) for i in range(RELOC["db"])]
+    query = [(f"query{j}", 10.0 * RELOC["source_every"] * j + 2.0)
+             for j in range(RELOC["queries"])]
+    gt("db.pickle", "database", db)
+    gt("query.pickle", "query", query)
+    gt("db4.pickle", "database", db[:4])
+    gt("query2.pickle", "query", query[:2])
+    return pcd
+
+
+def reloc_cli(work, db_gt, query_gt, device):
+    """The port's relocalisation CLI, in this process, with the CLI's
+    defaults (N=4096, 256 keypoints, 500 RANSAC iterations)."""
+    from dh3d_tpu_torch.evaluate import relocalize
+
+    return relocalize.main([
+        "--local_model", "models/demo_stage2",
+        "--global_model", "models/demo_stage3",
+        "--db_gt", os.path.join(work, db_gt),
+        "--query_gt", os.path.join(work, query_gt),
+        "--pcdpath", os.path.join(work, "pcd"),
+        "--num_points", str(RELOC["num_points"]),
+        "--nms_max_kp", str(RELOC["nms_max_kp"]),
+        "--ransac_iters", str(RELOC["ransac_iters"]),
+        "--device", str(device)])
+
+
+class Descriptors:
+    """Keeps the descriptors of every forward the relocalisation CLI makes
+    while it is entered (references, no copy, no synchronisation), by
+    wrapping the `make_forward` it calls."""
+
+    def __enter__(self):
+        from dh3d_tpu_torch.evaluate import relocalize
+
+        self.module, self.real = relocalize, relocalize.make_forward
+        self.kept = {"global_desc": [], "local_desc": []}
+
+        def wrapped(cfg, model):
+            fwd = self.real(cfg, model)
+
+            def call(*args, **kwargs):
+                outs = fwd(*args, **kwargs)
+                key = "global_desc" if cfg.extract_global else "local_desc"
+                self.kept[key].append(outs[key])
+                return outs
+
+            return call
+
+        relocalize.make_forward = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.module.make_forward = self.real
+
+
+def reloc_phase(torch, kernels, work, nms_file):
+    """Phase 12.  Returns (launches over the relocalisation run, report,
+    the keypoint files of the pair for phase 13)."""
+    from dh3d_tpu_torch.data.io import write_to_bin
+    from dh3d_tpu_torch.evaluate import (registration_eval, relocalize,
+                                         repeatability_eval)
+
+    pcd = write_reloc_pool(work)
+    n_db, n_q = RELOC["db"], RELOC["queries"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    with Descriptors() as kept:
+        s = reloc_cli(work, "db.pickle", "query.pickle", "cuda")
+    torch.cuda.synchronize()
+    launches = kernels.counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  launches over the relocalisation of {n_q} queries against "
+        f"{n_db} clouds: {launches}")
+    for name in FORWARD_KERNELS:
+        assert launches[name] > 0, \
+            f"kernel {name} was not launched by the relocalisation"
+    assert s["n"] == n_q and s["database"] == n_db, s
+    assert len(kept.kept["global_desc"]) == n_db + n_q
+    assert len(kept.kept["local_desc"]) == 2 * n_q
+    for key, outs in kept.kept.items():
+        for d in outs:
+            assert torch.isfinite(d).all(), key
+            err = (d.norm(dim=-1) - 1).abs().max().item()
+            assert err < 1e-4, (key, err)
+    for q in s["queries"]:
+        assert q["matches"] is not None and q["matches"] >= 3, q
+    t = s["timings"]
+    stages = s["seconds"] - t["models"]
+    report = {
+        "shape": [1, RELOC["num_points"], 3], "database": n_db,
+        "queries": n_q, "seconds": s["seconds"],
+        "clouds_per_s": (n_db + n_q) / stages,
+        "ms_per_cloud": {k: 1e3 * t[k] / (n_db + n_q)
+                         for k in ("load", "global_forward")},
+        "ms_per_query": {k: 1e3 * t[k] / n_q for k in relocalize.QUERY_KEYS},
+        # the first query's calls carry one-time set-ups (cuSOLVER's)
+        "ms_by_query": [q["ms"] for q in s["queries"]],
+        "models_s": t["models"], "retrieved": s["retrieved"],
+        "registered": s["registered"],
+        "per_query": [{k: q[k] for k in ("query", "top1", "retrieval_m",
+                                         "inliers", "matches")}
+                      | {"keypoints": [len(q["kp_query"]), len(q["kp_db"])]}
+                      for q in s["queries"]],
+        "launches": launches,
+        "launches_per_query": {k: v / n_q for k, v in launches.items()},
+        "peak_mem_gb": peak_gb}
+    by_query = [{k: round(v, 2) for k, v in q.items()}
+                for q in report["ms_by_query"]]
+    log(f"  relocalisation at N={RELOC['num_points']}: "
+        f"{report['clouds_per_s']:.2f} clouds/s (host clock, model loads "
+        f"excluded); ms a cloud "
+        f"{ {k: round(v, 2) for k, v in report['ms_per_cloud'].items()} }, "
+        f"ms a query "
+        f"{ {k: round(v, 2) for k, v in report['ms_per_query'].items()} } "
+        f"(by query: {by_query}); "
+        f"retrieved {s['retrieved']}/{n_q}, registered {s['registered']}/"
+        f"{n_q}; peak {peak_gb:.2f} GB")
+
+    st = registration_eval.main(["--self_test", nms_file, "--device", "cuda"])
+    assert st["success"] and st["rte"] < 1e-6 and st["rre"] < 1e-4, st
+    report["self_test"] = st
+
+    # a scan and a rigidly moved copy, extracted as phase 8 extracts
+    pair_dir = os.path.join(work, "pair")
+    os.makedirs(pair_dir)
+    scan = lidar_like_scan(300, extent=15.0)
+    copy, R, tr = moved(scan, PAIR_MOTION, 7)
+    write_to_bin(scan, os.path.join(pair_dir, "a.bin"))
+    write_to_bin(copy, os.path.join(pair_dir, "b.bin"))
+    local_cli(pair_dir, os.path.join(work, "pair_nms"), "--perform_nms")
+    files = [os.path.join(work, "pair_nms", f"{n}_nms_res.bin")
+             for n in ("a", "b")]
+    T_gt = np.eye(4)  # maps b into a's frame: a = b @ R.T - R.T t
+    T_gt[:3, :3], T_gt[:3, 3] = R.T, -R.T @ tr
+    np.savetxt(os.path.join(work, "T_gt.txt"), T_gt)
+    with open(os.path.join(work, "pairs.txt"), "w") as f:
+        f.write(f"{files[0]} {files[1]} {os.path.join(work, 'T_gt.txt')}\n")
+    pr = registration_eval.main(["--pairs", os.path.join(work, "pairs.txt"),
+                                 "--device", "cuda"])
+    assert pr["pairs"] == 1, pr
+    report["pairs"] = pr["per_pair"][0]
+
+    t0 = time.perf_counter()
+    rep = repeatability_eval.main([
+        "--model", "models/demo_stage2", "--pcdpath", pcd, "--max_clouds",
+        "4", "--protocol", "both", "--device", "cuda"])
+    report["repeatability"] = {"seconds": time.perf_counter() - t0,
+                               **{k: rep[k] for k in ("self-pair",
+                                                      "partial-overlap")}}
+    for curve in (rep["self-pair"], rep["partial-overlap"]):
+        assert all(0 <= v <= 1 for v in curve.values()), curve
+    log(f"  registration: self-test RTE {st['rte']:.3g} m RRE "
+        f"{st['rre']:.3g} deg, {st['inliers']}/{st['matches']}; scan vs "
+        f"moved copy {report['pairs']}; repeatability {report['repeatability']}")
+    return launches, report, files
+
+
+def ransac_host_loop(xyz1, xyz2, iters, seed, thresh=1.0):
+    """The JAX package's RANSAC loop (`dh3d_tpu/eval/registration.py:
+    47-79`) on the port's numpy `rigid_transform_3d`: a fit and a residual
+    pass a hypothesis, on the host.  Returns (R, t, inliers)."""
+    from dh3d_tpu_torch.utils.transforms import rigid_transform_3d
+
+    rng = np.random.RandomState(seed)
+    best, best_count = None, -1
+    for _ in range(iters):
+        sel = rng.choice(len(xyz1), 3, replace=False)
+        try:
+            R, t = rigid_transform_3d(xyz1[sel], xyz2[sel])
+        except np.linalg.LinAlgError:
+            continue
+        inl = np.linalg.norm(xyz2 @ R.T + t - xyz1, axis=1) < thresh
+        if inl.sum() > best_count:
+            best, best_count = inl, int(inl.sum())
+    R, t = rigid_transform_3d(xyz1[best], xyz2[best])
+    return R, t, np.linalg.norm(xyz2 @ R.T + t - xyz1, axis=1) < thresh
+
+
+def host_ms(fn, reps):
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def card_vs_cpu_reloc(torch, device, work, files):
+    """Phase 13: (a) matching and RANSAC of the card's keypoints and
+    descriptors (phase 12's pair) on the card and on the CPU, and the
+    batched RANSAC's time against the JAX algorithm's host loop; (b) the
+    relocalisation CLI on 2 queries and 4 database clouds, card against
+    CPU."""
+    from dh3d_tpu_torch.eval import match_descriptors_mutual, ransac_rigid
+    from dh3d_tpu_torch.eval.registration import ransac_draws
+    from dh3d_tpu_torch.evaluate.registration_eval import load_kp_file
+
+    (kp1, d1), (kp2, d2) = (load_kp_file(f) for f in files)
+    m_gpu = match_descriptors_mutual(d1, d2, device=device).cpu()
+    m_cpu = match_descriptors_mutual(d1, d2, device="cpu")
+    assert torch.equal(m_gpu, m_cpu), "mutual matches differ card / CPU"
+    m = m_cpu.numpy()
+    xyz1, xyz2 = kp1[m[:, 0]].astype(np.float64), kp2[m[:, 1]].astype(
+        np.float64)
+    iters, seed = RELOC["ransac_iters"], 0
+    gpu = ransac_rigid(xyz1, xyz2, iters=iters, seed=seed, device=device)
+    cpu = ransac_rigid(xyz1, xyz2, iters=iters, seed=seed, device="cpu")
+    R, t, inl = ransac_host_loop(xyz1, xyz2, iters, seed)
+    assert gpu is not None and cpu is not None, len(m)
+    assert np.array_equal(gpu.inliers, cpu.inliers)
+    assert np.array_equal(gpu.inliers, inl)
+    for a, b in ((gpu.R, cpu.R), (gpu.t, cpu.t), (gpu.R, R), (gpu.t, t)):
+        assert np.abs(a - b).max() < 1e-9
+    timing = {
+        "matches": len(m), "keypoints": [len(kp1), len(kp2)],
+        "inliers": gpu.num_inliers, "iters": iters,
+        "card_ms": host_ms(lambda: ransac_rigid(
+            xyz1, xyz2, iters=iters, seed=seed, device=device), 5),
+        "draws_ms": host_ms(lambda: ransac_draws(len(m), iters, seed), 5),
+        "host_loop_ms": host_ms(lambda: ransac_host_loop(
+            xyz1, xyz2, iters, seed), 3),
+        "match_card_ms": host_ms(lambda: match_descriptors_mutual(
+            d1, d2, device=device).cpu(), 5)}
+    log(f"  matching and RANSAC of the card's pair on card and CPU: "
+        f"{len(m)} matches, {gpu.num_inliers} inliers equal, R and t "
+        f"within 1e-9; RANSAC {iters} hypotheses: batched on the card "
+        f"{timing['card_ms']:.2f} ms (draws {timing['draws_ms']:.2f} ms), "
+        f"host loop {timing['host_loop_ms']:.2f} ms")
+
+    runs = {}
+    for dev in ("cpu", device):
+        t0 = time.perf_counter()
+        runs[str(dev)] = reloc_cli(work, "db4.pickle", "query2.pickle", dev)
+        runs[str(dev)]["wall_s"] = time.perf_counter() - t0
+    cpu_run, gpu_run = runs["cpu"], runs[str(device)]
+    differ = {"matches": 0, "inliers": 0}
+    for a, b in zip(gpu_run["queries"], cpu_run["queries"]):
+        assert a["top1"] == b["top1"], (a["query"], a["top1"], b["top1"])
+        assert a["kp_query"] == b["kp_query"], a["query"]
+        assert a["kp_db"] == b["kp_db"], a["query"]
+        for k in differ:
+            differ[k] += int(a[k] != b[k])
+    log(f"  relocalisation of 2 queries against 4 clouds on card and CPU: "
+        f"top-1 and NMS keypoints equal; queries whose matches / inliers "
+        f"differ: {differ}; CPU run {cpu_run['wall_s']:.1f} s, card "
+        f"{gpu_run['wall_s']:.2f} s")
+    return {"ransac": timing, "cli_differ": differ,
+            "cpu_s": cpu_run["wall_s"], "card_s": gpu_run["wall_s"]}
+
+
 def main():
     import torch
 
@@ -1746,10 +2127,11 @@ def main():
     log("phase 7: card vs CPU train step [2, 8192]")
     card_vs_cpu_train(torch, device)
 
+    scratch = tempfile.TemporaryDirectory()  # phases 8 and 12
     log("phase 8: local extraction with NMS [1, 16384] and global [4, 8192]")
-    with tempfile.TemporaryDirectory() as work:
-        extract_launches, extract_report = extraction_phase(torch, kernels,
-                                                            work)
+    extract = os.path.join(scratch.name, "extract")
+    extract_launches, extract_report = extraction_phase(torch, kernels,
+                                                        extract)
 
     log("phase 9: card vs CPU extraction [1, 16384]")
     extract_report["card_vs_cpu"] = card_vs_cpu_extraction(torch, T, device)
@@ -1764,7 +2146,19 @@ def main():
     disk_report["card_vs_cpu_pairgen"] = card_vs_cpu_pairgen(torch, device,
                                                              held)
 
-    # `launches`: the count from this slice's path (the NMS extraction)
+    log("phase 12: relocalisation [1, 4096]: 4 queries against 12 clouds; "
+        "registration and repeatability CLIs")
+    reloc = os.path.join(scratch.name, "reloc")
+    reloc_launches, reloc_report, pair_files = reloc_phase(
+        torch, kernels, reloc,
+        os.path.join(extract, "nms", "scan0_nms_res.bin"))
+
+    log("phase 13: card vs CPU matching, RANSAC and relocalisation")
+    reloc_report["card_vs_cpu"] = card_vs_cpu_reloc(torch, device, reloc,
+                                                    pair_files)
+    scratch.cleanup()
+
+    # `launches`: the count from this slice's path (the relocalisation)
     # for the kernels it runs, from the train step for E and F
     kernel_rows = []
     for name, rows in cases.items():
@@ -1773,12 +2167,13 @@ def main():
         kernel_rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": replaces, "also_replaces": also,
-            "launches": (extract_launches if name in EXTRACT_KERNELS
+            "launches": (reloc_launches if name in FORWARD_KERNELS
                          else train_launches)[name],
             "launches_by_path": {"forward": fwd_launches[name],
                                  "train_step": train_launches[name],
                                  "extract_local": extract_launches[name],
-                                 "train_from_disk": disk_launches[name]},
+                                 "train_from_disk": disk_launches[name],
+                                 "relocalize": reloc_launches[name]},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
@@ -1786,6 +2181,7 @@ def main():
     log(json.dumps({"train_step": train_report}))
     log(json.dumps({"extract_local": extract_report}))
     log(json.dumps({"train_from_disk": disk_report}))
+    log(json.dumps({"relocalize": reloc_report}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": kernel_rows}))

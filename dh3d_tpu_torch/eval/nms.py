@@ -51,8 +51,9 @@ def single_nms(xyz, attention, nms_radius, min_response_ratio, max_keypoints,
 
 
 def device_nms(xyz, attention, nms_radius, min_response_ratio, max_keypoints,
-               remove_noise=True, device="cpu"):
-    """The rules of `single_nms` on `device` (`dh3d_tpu/eval/nms.py:46-82`).
+               remove_noise=True, device="cuda"):
+    """The rules of `single_nms` on `device` (`dh3d_tpu/eval/nms.py:46-82`),
+    the card unless the caller names the CPU.
 
     xyz [N, 3], attention [N] (arrays or tensors).  Returns (num_keypoints,
     indices [min(max_keypoints, N)] int64 numpy, by descending attention,
@@ -87,7 +88,7 @@ def device_nms(xyz, attention, nms_radius, min_response_ratio, max_keypoints,
 
 def nms_keypoint_indices(xyz, attention, nms_radius, min_response_ratio,
                          max_keypoints, remove_noise=True, backend="device",
-                         parity_check=False, device="cpu"):
+                         parity_check=False, device="cuda"):
     """NMS entry point of `extract_local`.
 
     backend='device' runs `device_nms` on `device`; 'host' runs

@@ -831,3 +831,66 @@ def test_device_augment_on_card_equals_cpu(device):
     card = torch_augment(pts.to(device), [(n, d.to(device))
                                           for n, d in draws])
     _close(card.cpu(), cpu, rel=1e-6)
+
+
+def _correspondences(seed, n=200, outliers=0.4):
+    rng = np.random.RandomState(seed)
+    xyz2 = rng.randn(n, 3) * 10
+    ang = rng.uniform(-np.pi, np.pi)
+    R = np.array([[np.cos(ang), -np.sin(ang), 0],
+                  [np.sin(ang), np.cos(ang), 0], [0, 0, 1]])
+    xyz1 = xyz2 @ R.T + rng.uniform(-5, 5, 3) + rng.randn(n, 3) * 0.05
+    bad = rng.rand(n) < outliers
+    xyz1[bad] = rng.randn(int(bad.sum()), 3) * 10
+    return xyz1.astype(np.float32), xyz2.astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_matching_and_ransac_on_card_equal_cpu(device, seed):
+    """Mutual matching and RANSAC (batched fits, cuSOLVER's SVD) on the
+    card against the CPU (LAPACK) on the same inputs: the same matches and
+    inlier sets, R and t within 1e-9; a NaN correspondence is skipped on
+    both."""
+    from dh3d_tpu_torch.eval import match_descriptors_mutual, ransac_rigid
+
+    rng = np.random.RandomState(seed)
+    d1 = rng.randn(256, 128).astype(np.float32)
+    d2 = np.concatenate([d1[:100] + rng.randn(100, 128).astype(np.float32)
+                         * 0.05, rng.randn(156, 128).astype(np.float32)])
+    m_gpu = match_descriptors_mutual(d1, d2, device=device)
+    assert m_gpu.device.type == "cuda"
+    assert torch.equal(m_gpu.cpu(),
+                       match_descriptors_mutual(d1, d2, device="cpu"))
+    xyz1, xyz2 = _correspondences(seed)
+    xyz1[5, 2] = np.nan
+    for iters in (500, 1000):
+        gpu = ransac_rigid(xyz1, xyz2, iters=iters, seed=seed, device=device)
+        cpu = ransac_rigid(xyz1, xyz2, iters=iters, seed=seed, device="cpu")
+        assert gpu.num_inliers == cpu.num_inliers > 80
+        assert np.array_equal(gpu.inliers, cpu.inliers)
+        assert not gpu.inliers[5]
+        assert np.abs(gpu.R - cpu.R).max() < 1e-9
+        assert np.abs(gpu.t - cpu.t).max() < 1e-9
+
+
+def test_repeatability_on_card_equals_cpu(device):
+    """`repeatability_curve` with NMS on the card (kernel G at k = 50)
+    against the CPU on the same rigid-invariant detector."""
+    from scipy.spatial import cKDTree
+
+    from dh3d_tpu_torch.eval import repeatability_curve
+
+    def extract(cloud):
+        dist, _ = cKDTree(cloud).query(cloud, k=9)
+        att = 1.0 / (1e-3 + dist[:, -1])
+        return cloud, (att / att.max()).astype(np.float32)
+
+    rng = np.random.RandomState(4)
+    clouds = [(rng.randn(2000, 3) * np.array([4, 4, 1])).astype(np.float32)
+              for _ in range(2)]
+    before = kernels.KNN_TOPK.launches
+    gpu = repeatability_curve(extract, clouds, ks=(32, 128), device=device)
+    torch.cuda.synchronize()
+    assert kernels.KNN_TOPK.launches == before + 4  # one NMS a cloud
+    assert gpu == repeatability_curve(extract, clouds, ks=(32, 128),
+                                      device="cpu")

@@ -99,7 +99,7 @@ def test_single_nms_matches_jax(rng, kind):
 def test_device_nms_matches_jax_and_host(rng, kind):
     xyz, att = _nms_fixture(kind, rng)
     n_j, idx_j = jnms.device_nms(xyz, att, *NMS_ARGS, 100)
-    n_t, idx_t = tnms.device_nms(xyz, att, *NMS_ARGS, 100)
+    n_t, idx_t = tnms.device_nms(xyz, att, *NMS_ARGS, 100, device="cpu")
     assert n_t == n_j
     np.testing.assert_array_equal(idx_t, np.asarray(idx_j))
     _, host = tnms.single_nms(xyz.astype(np.float64), att.copy(), *NMS_ARGS,
@@ -118,7 +118,7 @@ def test_nms_noise_removal_and_tensor_inputs():
     for fn in (jnms.single_nms, tnms.single_nms):
         assert 60 not in fn(xyz, att, 0.5, 0.01, 5)[1]
     n, idx = tnms.device_nms(torch.from_numpy(xyz), torch.from_numpy(att),
-                             0.5, 0.01, 5)
+                             0.5, 0.01, 5, device="cpu")
     assert 60 not in idx[:n]
     assert list(idx[:n]) == jnms.device_nms(xyz, att, 0.5, 0.01, 5)[1][:n].tolist()
 
@@ -130,10 +130,12 @@ def test_nms_keypoint_indices_matches_jax(rng, backend):
     want = jnms.nms_keypoint_indices(xyz, att, *NMS_ARGS, 40,
                                      backend=backend, parity_check=True)
     got = tnms.nms_keypoint_indices(xyz, att, *NMS_ARGS, 40,
-                                    backend=backend, parity_check=True)
+                                    backend=backend, parity_check=True,
+                                    device="cpu")
     assert got == want and len(got) > 0
     with pytest.raises(ValueError, match="backend"):
-        tnms.nms_keypoint_indices(xyz, att, *NMS_ARGS, 40, backend="tpu")
+        tnms.nms_keypoint_indices(xyz, att, *NMS_ARGS, 40, backend="tpu",
+                                  device="cpu")
 
 
 # -------------------------------- loaders --------------------------------

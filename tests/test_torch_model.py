@@ -199,6 +199,13 @@ def test_port_imports_no_jax():
         "import dh3d_tpu_torch.evaluate.globaldesc_extract\n"
         "import dh3d_tpu_torch.data.augment, dh3d_tpu_torch.data.pairgen\n"
         "import dh3d_tpu_torch.data.prefetch, dh3d_tpu_torch.train.data\n"
+        "import dh3d_tpu_torch.utils.transforms\n"
+        "import dh3d_tpu_torch.eval.registration\n"
+        "import dh3d_tpu_torch.eval.repeatability\n"
+        "import dh3d_tpu_torch.eval.matlab_extras\n"
+        "import dh3d_tpu_torch.evaluate.relocalize\n"
+        "import dh3d_tpu_torch.evaluate.registration_eval\n"
+        "import dh3d_tpu_torch.evaluate.repeatability_eval\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'flax', 'dh3d_tpu', 'sklearn'))\n"
         "assert not bad, bad\n")
