@@ -129,6 +129,25 @@ result line:
      on 2 queries and 4 database clouds on the card and with `--device
      cpu`: the same top-1 and NMS keypoints; the queries whose matches or
      inliers differ are counted (reported, not checked).
+ 14. the legacy Morton-band mode (`morton_exact=False`): (a) kernel H
+     (`knn_window`) against its plain version, ids and d2 bit for bit, at
+     the legacy path's shapes (the self kNN k=8 W=512 at [20, 8192] and
+     [1, 16384]; a windowed level's self kNN at [1, 4096] and its 3-NN W=256
+     from [1, 32768]), each with its device time, bound, A's instruction
+     floor over its pairs and one launch a call; every tile's band start of
+     `WINDOW_START_SHAPES` read back from H against the formula; (b) the
+     main-path model with morton_exact=False at [20, 8192]: over one
+     forward H once, G one time fewer than phase 4's, A-D as often, the
+     outputs checked as phase 4's, clouds/s beside the exact forward's in
+     turns; (c) that forward at [2, 8192] on the card and on the CPU, as
+     phase 5; (d) one legacy `detection_config` step and one phase-6 step
+     with `remat` at [20, 8192]: finite losses, launches, step time and
+     peak memory beside phase 6's; (e) `flex_avg` and `flex_deconv` on the
+     card against their plain versions; (f) the port's error-budget CLI
+     (`dh3d_tpu_torch.evaluate.error_budget`) with the demo weights on two
+     sequences of 4 normalised lidar-like scans at N=8192: all four
+     stages, every number finite, 0 < agreement <= 1 (the values are
+     reported, not checked: the demo weights never saw such scans).
 The last three lines: the card, the kernels JSON, the ok JSON.
 
 To compare two trees of the port on one card (run them in turns: parent,
@@ -209,6 +228,8 @@ REPLACES = {
     # A: the banded 3-NN; G: the slab kNN, and the packed and exact
     # kernels' shapes from k = 8 up (A keeps them below)
     "knn": ("dh3d_tpu/ops/pallas/knn_pallas.py:149", []),
+    # H: the same kernel's band of W < M key rows (the legacy mode)
+    "knn_window": ("dh3d_tpu/ops/pallas/knn_pallas.py:149", []),
     "knn_topk": ("dh3d_tpu/ops/pallas/knn_pallas.py:259",
                  ["dh3d_tpu/ops/pallas/knn_pallas.py:34",
                   "dh3d_tpu/ops/pallas/knn_pallas.py:112"]),
@@ -224,6 +245,7 @@ REPLACES = {
 SOURCES = {
     "knn": "dh3d_tpu_torch/csrc/knn.cu",
     "knn_topk": "dh3d_tpu_torch/csrc/knn_topk.cu",
+    "knn_window": "dh3d_tpu_torch/csrc/knn_window.cu",
     "fps": "dh3d_tpu_torch/csrc/fps.cu",
     **{name: "dh3d_tpu_torch/csrc/neighborhood.cu"
        for name in ("weighted_sum", "flex_moments", "neighbor_max",
@@ -261,6 +283,17 @@ RELOC = {"num_points": 4096, "nms_max_kp": 256, "ransac_iters": 500,
 # the moved copies: a query from its database scan, the pairs file's copy
 QUERY_MOTION = (0.2, (1.5, -1.0, 0.0))  # z-rotation (rad), translation (m)
 PAIR_MOTION = (0.5, (3.0, -2.0, 0.5))
+# Phase 14: kernel H's band starts read back at these (queries, keys,
+# window): a self query wider than the int32 product of the JAX kernel
+# allows, the windowed level's 3-NN and kNN, the forward's and the
+# extraction's self kNN, and cross shapes whose tiles share bands
+WINDOW_START_SHAPES = ((33024, 33024, 512), (32768, 32768, 512),
+                       (32768, 4096, 256), (32768, 4096, 512),
+                       (16384, 16384, 512), (8192, 8192, 512),
+                       (8192, 1024, 256), (5120, 2560, 256),
+                       (2048, 256, 128))
+# Phase 14 (f): the error budget's pool: two sequences of 4 scans
+BUDGET = {"num_points": 8192, "per_sequence": 4}
 
 
 def log(*args):
@@ -737,6 +770,55 @@ def sm_clock_mhz(torch, fn, ms) -> float:
     return float(r.stdout.strip().splitlines()[0])
 
 
+def measure_case(torch, cases, name, shape, kernel_fn, plain_fn, compare,
+                 inputs, ops, library_fn=None, info=None,
+                 library_compare=None, **extra):
+    """Compare, time and bound one kernel case; the row goes to
+    cases[name].  `inputs`: the tensors the function reads (its outputs
+    are counted from the kernel's); `ops`: its f32 operations;
+    `library_fn`: one PyTorch call or library route for the same function,
+    checked like the plain version or by `library_compare(its output,
+    plain output)`; `info`: more keys of the row (a plan); `extra`: more
+    timed routes, name -> fn."""
+    out, ref = kernel_fn(), plain_fn()
+    torch.cuda.synchronize()
+    err = compare(out, ref)
+    row = {"shape": shape, "max_abs_err": err,
+           "ms": device_ms(torch, kernel_fn),
+           "plain_ms": device_ms(torch, plain_fn), **(info or {})}
+    row["bound_ms"], row["bound_by"] = bound(
+        nbytes(*inputs, *flat_outputs(out)), ops)
+    row["library_ms"] = None
+    if library_fn is not None:
+        (library_compare or compare)(library_fn(), ref)
+        row["library_ms"] = device_ms(torch, library_fn)
+    for key, fn in extra.items():
+        row[key] = device_ms(torch, fn)
+    cases[name].append(row)
+    lib = row["library_ms"]
+    log(f"  {name:13s} {shape:42s} kernel {row['ms']:8.3f} ms  plain "
+        f"{row['plain_ms']:9.3f}  bound {row['bound_ms']:6.3f} "
+        f"({row['bound_by']})  library "
+        f"{'-' if lib is None else f'{lib:.3f}'}  max_abs_err {err:.3g}"
+        + "".join(f"  {k} {v:.3f}" for k, v in row.items() if k in extra)
+        + "".join(f"  {k} {v}" for k, v in (info or {}).items()))
+    return row
+
+
+def same_knn(out, ref):
+    """A kNN's (ids, d2) equal to the plain version's, bit for bit."""
+    import torch
+
+    assert torch.equal(out[0], ref[0]), "kNN indices differ"
+    assert torch.equal(out[1], ref[1]), "kNN d2 differ"
+    return 0.0
+
+
+def flat_outputs(out):
+    out = out if isinstance(out, (tuple, list)) else [out]
+    return [t for t in out if t is not None]
+
+
 def kernel_phase(torch, T, device):
     """Phase 3: each kernel against its plain version at main-path shapes.
     Returns {kernel name: [case dict, ...]}, the main-path case first."""
@@ -746,48 +828,7 @@ def kernel_phase(torch, T, device):
     g = torch.Generator(device="cpu").manual_seed(0)
     cases = {name: [] for name in REPLACES}
 
-    def flat(out):
-        out = out if isinstance(out, (tuple, list)) else [out]
-        return [t for t in out if t is not None]
-
-    def case(name, shape, kernel_fn, plain_fn, compare, inputs, ops,
-             library_fn=None, info=None, library_compare=None, **extra):
-        """Compare, time and bound one kernel case.  `inputs`: the tensors
-        the function reads (its outputs are counted from the kernel's);
-        `ops`: its f32 operations; `library_fn`: one PyTorch call or
-        library route for the same function, checked like the plain
-        version or by `library_compare(its output, plain output)`;
-        `info`: more keys of the row (a plan); `extra`: more timed
-        routes, name -> fn."""
-        out, ref = kernel_fn(), plain_fn()
-        torch.cuda.synchronize()
-        err = compare(out, ref)
-        row = {"shape": shape, "max_abs_err": err,
-               "ms": device_ms(torch, kernel_fn),
-               "plain_ms": device_ms(torch, plain_fn), **(info or {})}
-        row["bound_ms"], row["bound_by"] = bound(
-            nbytes(*inputs, *flat(out)), ops)
-        row["library_ms"] = None
-        if library_fn is not None:
-            (library_compare or compare)(library_fn(), ref)
-            row["library_ms"] = device_ms(torch, library_fn)
-        for key, fn in extra.items():
-            row[key] = device_ms(torch, fn)
-        cases[name].append(row)
-        lib = row["library_ms"]
-        log(f"  {name:13s} {shape:42s} kernel {row['ms']:8.3f} ms  plain "
-            f"{row['plain_ms']:9.3f}  bound {row['bound_ms']:6.3f} "
-            f"({row['bound_by']})  library "
-            f"{'-' if lib is None else f'{lib:.3f}'}  max_abs_err {err:.3g}"
-            + "".join(f"  {k} {v:.3f}" for k, v in row.items()
-                      if k in extra)
-            + "".join(f"  {k} {v}" for k, v in (info or {}).items()))
-        return row
-
-    def same_knn(out, ref):
-        assert torch.equal(out[0], ref[0]), "kNN indices differ"
-        assert torch.equal(out[1], ref[1]), "kNN d2 differ"
-        return 0.0
+    case = partial(measure_case, torch, cases)
 
     def same(out, ref):
         assert torch.equal(out, ref), "indices differ"
@@ -2036,6 +2077,333 @@ def card_vs_cpu_reloc(torch, device, work, files):
             "cpu_s": cpu_run["wall_s"], "card_s": gpu_run["wall_s"]}
 
 
+# ------------------- phase 14: the legacy Morton-band mode -------------------
+
+def morton_sorted(torch, T, points):
+    perm, _ = T.morton_perm(points)
+    return torch.gather(points, 1,
+                        perm[..., None].expand(-1, -1, 3)).contiguous()
+
+
+def window_phase(torch, T, kernels, device, cases):
+    """Phase 14 (a): kernel H against its plain version, bit for bit, at
+    the legacy path's shapes, each with its device time, bound (8 f32
+    operations for the d2 of every pair of each band: H computes them all),
+    A's instruction floor over those pairs and its launches a call; then
+    every tile's band start read back from H against the formula."""
+    from dh3d_tpu_torch.entry import entry_points
+
+    fwd = morton_sorted(torch, T, torch.from_numpy(
+        entry_points(20, 8192)).to(device))
+    lidar = morton_sorted(torch, T, torch.from_numpy(
+        eval_cloud(0, 16384)[None]).to(device))
+    big = morton_sorted(torch, T, torch.from_numpy(
+        lidar_like_scan(9, n_points=32768)[None] / np.float32(30.0)
+    ).to(device))
+    big_sub = T.gather_point(big, torch.sort(
+        T.farthest_point_sample(big, 4096), dim=-1).values).contiguous()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for label, q, keys, k, w in (
+            ("self k=8 W=512 [20,8192] (legacy forward)", fwd, fwd, 8, 512),
+            ("self k=8 W=512 [1,16384] (legacy extraction)", lidar, lidar,
+             8, 512),
+            ("self k=8 W=512 [1,4096] (a windowed level)", big_sub, big_sub,
+             8, 512),
+            ("cross k=3 W=256 [1,32768]->[1,4096] (its 3-NN)", big, big_sub,
+             3, 256)):
+        pairs = q.shape[0] * q.shape[1] * w
+        call = partial(T.knn_window, q, keys, k, w)
+        row = measure_case(torch, cases, "knn_window", label, call,
+                           partial(T.knn_window_plain, q, keys, k, w),
+                           same_knn, (q, keys), 8 * pairs,
+                           info={"k": k, "window": w, "pairs": pairs})
+        before = kernels.KNN_WINDOW.launches
+        call()
+        torch.cuda.synchronize()
+        row["launches_a_call"] = kernels.KNN_WINDOW.launches - before
+        assert row["launches_a_call"] == 1
+        row["sm_clock_mhz"] = mhz = sm_clock_mhz(torch, call, row["ms"])
+        row["instruction_floor_ms"] = (KNN_FLOOR_INSTRUCTIONS_PER_PAIR * pairs
+                                       / (sms * 128) / (mhz * 1e6) * 1e3)
+        log(f"  knn_window {label:42s} instruction floor "
+            f"{row['instruction_floor_ms']:.4f} ms at {mhz:.0f} MHz")
+
+    # every tile's band start: keys on a line, x = their index, and every
+    # query at x = -1000, so that each query's nearest key in its band is
+    # the band's first
+    checked = 0
+    for nq, nk, w in WINDOW_START_SHAPES:
+        keys = torch.zeros(1, nk, 3, device=device)
+        keys[0, :, 0] = torch.arange(nk, device=device, dtype=torch.float32)
+        query = torch.zeros(1, nq, 3, device=device)
+        query[0, :, 0] = -1000.0
+        first = T.knn_window(query, keys, 1, w)[0][0, :, 0].view(-1, 256)
+        assert (first == first[:, :1]).all()
+        want = [min(max(((2 * i + 1) * 256 * nk) // (2 * nq) - w // 2, 0),
+                    nk - w) // 128 * 128 for i in range(nq // 256)]
+        got = first[:, 0].tolist()
+        assert got == want, (nq, nk, w)
+        checked += len(want)
+    log(f"  band starts of {checked} tiles at {len(WINDOW_START_SHAPES)} "
+        "shapes equal the formula")
+    return checked
+
+
+def legacy_forward_fn(device, batch, seed=0):
+    """(fn, points): the main-path model with morton_exact=False on
+    `device`, the entry weights, `batch` clouds of `entry`'s seed."""
+    import torch
+
+    from dh3d_tpu_torch.entry import entry_config, entry_points, entry_weights
+    from dh3d_tpu_torch.eval import make_forward
+    from dh3d_tpu_torch.nn import DH3D, load_flax
+
+    cfg = entry_config()
+    cfg.morton_exact = False
+    model = DH3D(cfg).to(device)
+    load_flax(model, entry_weights())
+    points = torch.from_numpy(entry_points(batch, seed=seed)).to(device)
+    return make_forward(cfg, model), points
+
+
+def legacy_forward_phase(torch, kernels, device, fwd_launches):
+    """Phase 14 (b): the legacy forward at [20, 8192]: over one forward H
+    once, G one time fewer than the exact forward (phase 4), A-D as often;
+    outputs checked as phase 4's; both forwards timed in turns."""
+    from dh3d_tpu_torch.entry import entry
+
+    B, N = 20, 8192
+    fn, points = legacy_forward_fn(device, B)
+    exact_fn, (exact_points,) = entry(device, batch=B)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    outs = fn(points)
+    torch.cuda.synchronize()
+    launches = kernels.counts()
+    log(f"  launches in one legacy forward: {launches}")
+    assert launches["knn_window"] == 1, launches
+    assert launches["knn_topk"] == fwd_launches["knn_topk"] - 1, launches
+    for name in ("knn", "fps", "weighted_sum", "flex_moments",
+                 "neighbor_max"):
+        assert launches[name] == fwd_launches[name], (name, launches)
+    check_outputs(torch, outs, points, B, N)
+    del outs
+    ms = {"exact": [], "legacy": []}
+    for mode in ("exact", "legacy", "legacy", "exact"):
+        f, p = (exact_fn, exact_points) if mode == "exact" else (fn, points)
+        ms[mode].append(cuda_ms(torch, lambda: f(p), warmup=2, reps=10))
+    report = {"shape": [B, N, 3], "launches": launches,
+              **{f"{m}_ms": v for m, v in ms.items()},
+              **{f"{m}_clouds_per_s": B / (statistics.median(v) / 1e3)
+                 for m, v in ms.items()}}
+    log(f"  forward, in turns (exact, legacy, legacy, exact): exact "
+        f"{ms['exact']} ms, legacy {ms['legacy']} ms (CUDA events, median "
+        f"of 10 each); {report['exact_clouds_per_s']:.1f} against "
+        f"{report['legacy_clouds_per_s']:.1f} clouds/s")
+    return launches, report
+
+
+def card_vs_cpu_legacy(torch, device):
+    """Phase 14 (c): the legacy forward at [2, 8192] on the card and on
+    the CPU: indices equal, descriptors within phase 5's tolerances."""
+    fn_gpu, p_gpu = legacy_forward_fn(device, 2)
+    fn_cpu, p_cpu = legacy_forward_fn("cpu", 2)
+    o_cpu = fn_cpu(p_cpu)
+    o_gpu = {k: v.cpu() for k, v in fn_gpu(p_gpu).items()}
+    for key in ("xyz", "knn_indices"):
+        assert torch.equal(o_gpu[key], o_cpu[key]), key
+    errs = {}
+    for key in ("local_desc", "attention", "global_desc", "xyz_feat_att"):
+        errs[key] = (o_gpu[key] - o_cpu[key]).abs().max().item()
+        assert errs[key] <= CARD_VS_CPU_ATOL, (key, errs[key])
+    feat_err = (o_gpu["feat"] - o_cpu["feat"]).abs().max().item()
+    feat_scale = o_cpu["feat"].abs().max().item()
+    assert feat_err <= CARD_VS_CPU_FEAT_REL * feat_scale, (feat_err,
+                                                           feat_scale)
+    log(f"  indices equal; max abs err {errs}; feat {feat_err:.3g} of "
+        f"{feat_scale:.3g}")
+    return {**errs, "feat": feat_err, "feat_scale": feat_scale}
+
+
+def timed_steps(torch, step, reps=5):
+    """Median ms of `reps` calls of step() on CUDA events, and the peak
+    memory over them."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), torch.cuda.max_memory_allocated() / 1e9
+
+
+def legacy_train_phase(torch, kernels, device, train_report):
+    """Phase 14 (d): one legacy detection_config step at [20, 8192] (H
+    takes the full-resolution kNN) and the phase-6 step with remat=True
+    (the local backbone recomputed in the backward), each with finite
+    losses, its launches, step time and peak memory; beside phase 6's."""
+    from dh3d_tpu_torch.train import make_train_step, synthetic_local_batches
+    from dh3d_tpu_torch.train import to_device
+
+    report = {}
+    for label, over in (("legacy", {"morton_exact": False}),
+                        ("remat", {"remat": True})):
+        cfg = stage2_config()
+        cfg.update(over)
+        state = stage2_state(cfg, device)
+        batch = to_device(next(synthetic_local_batches(cfg, seed=0)), device)
+        step_fn = make_train_step(cfg)
+        step_fn(state, batch)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        with InverseBuilds() as builds:
+            metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+        launches = kernels.counts()
+        metrics = {k: float(v) for k, v in metrics.items()}
+        assert all(map(math.isfinite, metrics.values())), (label, metrics)
+        step_ms, peak_gb = timed_steps(torch,
+                                       lambda: step_fn(state, batch))
+        report[label] = {"step_ms": step_ms, "peak_mem_gb": peak_gb,
+                         "launches": launches,
+                         "inverse_builds": len(builds.nbh),
+                         "total_cost": metrics["total_cost"]}
+        log(f"  {label} step: {step_ms:.2f} ms median of 5 (CUDA events), "
+            f"peak {peak_gb:.2f} GB, launches {launches}, CSR inverses "
+            f"built {len(builds.nbh)}; total_cost "
+            f"{metrics['total_cost']:.4f}")
+        del state
+    assert report["legacy"]["launches"]["knn_window"] >= 1
+    report["phase_6"] = {k: train_report[k] for k in
+                         ("step_ms", "peak_mem_gb", "launches",
+                          "inverse_builds")}
+    log(f"  phase 6's step: {train_report['step_ms']:.2f} ms, peak "
+        f"{train_report['peak_mem_gb']:.2f} GB, launches "
+        f"{train_report['launches']}")
+    return report
+
+
+def deconv_avg_phase(torch, T, device):
+    """Phase 14 (e): `flex_avg` (kernel C on weights of 1) and
+    `flex_deconv` (a product, then kernel E on positions) on the card at
+    the forward's full-resolution level against their plain versions,
+    within WSUM_REL of the largest magnitude."""
+    pts, _, nbh, _, _ = train_geometry(torch, T, device)
+    B, N, K = nbh.shape
+    g = torch.Generator(device="cpu").manual_seed(14)
+    feat = torch.randn(B, N, 64, generator=g).to(device)
+    theta = (0.1 * torch.randn(3, 64, 64, generator=g)).to(device)
+    bias = (0.1 * torch.randn(64, 64, generator=g)).to(device)
+
+    def avg_plain():
+        ones = torch.ones(B, N, K, 1, device=device)
+        return T.weighted_sum_plain(feat, nbh, ones)
+
+    def deconv_plain():
+        f_self = T.gather_neighbors(feat, nbh[:, :, :1])[:, :, 0]
+        w = torch.cat([bias[None], theta], 0).permute(1, 0, 2)
+        gm = f_self @ w.reshape(64, -1)
+        return T.weighted_sum_backward_plain(gm, nbh, T.flex_weights(pts, nbh),
+                                             N)
+
+    report = {}
+    for name, call, plain in (
+            ("flex_avg", partial(T.flex_avg, feat, nbh), avg_plain),
+            ("flex_deconv", partial(T.flex_deconv, feat, pts, nbh, theta,
+                                    bias), deconv_plain)):
+        out, ref = call(), plain()
+        err = (out - ref).abs().max().item()
+        assert err <= WSUM_REL * ref.abs().max().item(), (name, err)
+        report[name] = {"shape": f"C=64 K={K} [{B},{N}]", "max_abs_err": err,
+                        "ms": device_ms(torch, call),
+                        "plain_ms": device_ms(torch, plain)}
+        log(f"  {name} {report[name]}")
+    return report
+
+
+def write_budget_pool(work):
+    """The error budget's pool in `work`: two sequences of
+    BUDGET["per_sequence"] normalised lidar-like scans of
+    BUDGET["num_points"] points (`eval_cloud`'s loader), `seq0/s{i}` at
+    northing 10 i and `seq1/s{i}` the same place's scan moved by
+    QUERY_MOTION, 3 m further; both GT pickles over both sequences."""
+    from dh3d_tpu_torch.data.io import get_fixednum_pcd, write_to_bin
+
+    n, per = BUDGET["num_points"], BUDGET["per_sequence"]
+    gts = {"seq0": [], "seq1": []}
+    for i in range(per):
+        scan = lidar_like_scan(400 + i)
+        for seq, cloud, north in (("seq0", scan, 10.0 * i),
+                                  ("seq1", moved(scan, QUERY_MOTION, i)[0],
+                                   10.0 * i + 3.0)):
+            pts, real = get_fixednum_pcd(cloud, n, randsample=False,
+                                         need_downsample=True,
+                                         rng=np.random.RandomState(i))
+            assert real == n, (seq, i, real)
+            os.makedirs(os.path.join(work, seq), exist_ok=True)
+            write_to_bin(pts, os.path.join(work, seq, f"s{i}.bin"))
+            gts[seq].append({"query": f"{seq}/s{i}", "northing": north,
+                             "easting": 0.0})
+    for name in ("global_ref_demo.pickle", "global_query_demo.pickle"):
+        with open(os.path.join(work, name), "wb") as f:
+            pickle.dump(gts, f)
+    return 2 * per
+
+
+def budget_phase(work):
+    """Phase 14 (f): the port's error-budget CLI on the card, demo weights,
+    all four stages; every number finite and 0 < agreement <= 1."""
+    from dh3d_tpu_torch.evaluate import error_budget
+
+    clouds = write_budget_pool(work)
+    t0 = time.perf_counter()
+    report = error_budget.main([
+        "--local_model", "models/demo_stage2",
+        "--global_model", "models/demo_stage3", "--pcdpath", work,
+        "--num_points", str(BUDGET["num_points"]), "--device", "cuda",
+        "--json", os.path.join(work, "budget.json")])
+    seconds = time.perf_counter() - t0
+
+    def numbers(x):
+        if isinstance(x, dict):
+            return [v for y in x.values() for v in numbers(y)]
+        if isinstance(x, list):
+            return [v for y in x for v in numbers(y)]
+        return [x] if isinstance(x, (int, float)) else []
+
+    assert report["n_clouds"] == clouds, report["n_clouds"]
+    assert all(map(math.isfinite, numbers(report))), "a non-finite number"
+    a = report["A_knn"]["neighbor_agreement_mean"]
+    assert 0 < a <= 1, a
+    g, rep = report["BC_global"], report["C_repeatability"]
+    summary = {
+        "seconds": seconds, "clouds": clouds,
+        "neighbor_agreement": [a, report["A_knn"][
+            "neighbor_agreement_min_cloud"]],
+        "local_desc_cos_p50_p01": {
+            m: [v["local_desc_cos_p50"], v["local_desc_cos_p01"]]
+            for m, v in report["B_local"].items()},
+        "global_desc_cos_p50": {m: g[m]["global_desc_cos_p50"]
+                                for m in ("morton", "approx")},
+        "recall@1": {"parity": g["recall@1_parity"],
+                     **{m: [g[m]["recall@1"],
+                            g[m]["recall@1_diff_vs_parity_ci95"]]
+                        for m in ("morton", "approx")}},
+        "recall@25": {"parity": g["recall@25_parity"],
+                      **{m: [g[m]["recall@25"],
+                             g[m]["recall@25_diff_vs_parity_ci95"]]
+                         for m in ("morton", "approx")}},
+        "repeatability@512": rep}
+    log(f"  error budget, {clouds} clouds at N={BUDGET['num_points']} in "
+        f"{seconds:.1f} s: {json.dumps(summary)}")
+    return summary
+
+
 def main():
     import torch
 
@@ -2158,8 +2526,26 @@ def main():
                                                     pair_files)
     scratch.cleanup()
 
-    # `launches`: the count from this slice's path (the relocalisation)
-    # for the kernels it runs, from the train step for E and F
+    log("phase 14: the legacy Morton-band mode (morton_exact=False)")
+    log(" (a) kernel H against its plain version")
+    window_phase(torch, T, kernels, device, cases)
+    log(" (b) legacy forward [20, 8192]")
+    legacy_launches, legacy_report = legacy_forward_phase(
+        torch, kernels, device, fwd_launches)
+    log(" (c) card vs CPU legacy forward [2, 8192]")
+    legacy_report["card_vs_cpu"] = card_vs_cpu_legacy(torch, device)
+    log(" (d) legacy and remat train steps [20, 8192]")
+    legacy_report["train"] = legacy_train_phase(torch, kernels, device,
+                                                train_report)
+    log(" (e) flex_avg and flex_deconv on the card")
+    legacy_report["deconv_avg"] = deconv_avg_phase(torch, T, device)
+    log(" (f) the error-budget CLI, demo weights, N=8192")
+    with tempfile.TemporaryDirectory() as work:
+        legacy_report["error_budget"] = budget_phase(work)
+
+    # `launches`: the count from this slice's path (the legacy forward)
+    # for H, from the relocalisation for the other kernels it runs, from
+    # the train step for E and F
     kernel_rows = []
     for name, rows in cases.items():
         main_case = rows[0]
@@ -2167,13 +2553,15 @@ def main():
         kernel_rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": replaces, "also_replaces": also,
-            "launches": (reloc_launches if name in FORWARD_KERNELS
+            "launches": (legacy_launches if name == "knn_window"
+                         else reloc_launches if name in FORWARD_KERNELS
                          else train_launches)[name],
             "launches_by_path": {"forward": fwd_launches[name],
                                  "train_step": train_launches[name],
                                  "extract_local": extract_launches[name],
                                  "train_from_disk": disk_launches[name],
-                                 "relocalize": reloc_launches[name]},
+                                 "relocalize": reloc_launches[name],
+                                 "legacy_forward": legacy_launches[name]},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
@@ -2182,6 +2570,7 @@ def main():
     log(json.dumps({"extract_local": extract_report}))
     log(json.dumps({"train_from_disk": disk_report}))
     log(json.dumps({"relocalize": reloc_report}))
+    log(json.dumps({"legacy": legacy_report}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": kernel_rows}))

@@ -34,7 +34,8 @@ import torch
 PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "kernels")
-SOURCES = ("knn.cu", "knn_topk.cu", "fps.cu", "neighborhood.cu")
+SOURCES = ("knn.cu", "knn_topk.cu", "knn_window.cu", "fps.cu",
+           "neighborhood.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -170,6 +171,8 @@ KNN_TOPK = Kernel("knn_topk", "dh3d_knn_topk", [_P] * 5 + [_I] * 5)
 # G's pre-pass alone, for timing it; not a kernel of its own (G launches it)
 KNN_TOPK_PREPASS = Kernel("knn_topk_prepass", "dh3d_knn_topk_prepass",
                           [_P, _P, _P, _I, _I, _I])
+# H: sizes, k, then the band's width (window)
+KNN_WINDOW = Kernel("knn_window", "dh3d_knn_window", [_P] * 4 + [_I] * 5)
 FPS = Kernel("fps", "dh3d_fps", [_P, _P, _I, _I, _I, _I, _I])
 # C and D: sizes, then the plan (vec, lanes, passes)
 WEIGHTED_SUM = Kernel("weighted_sum", "dh3d_weighted_sum",
@@ -184,8 +187,8 @@ FLEX_MOMENTS_BWD = Kernel("flex_moments_backward", "dh3d_flex_moments_bwd",
                           [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I])
 NEIGHBOR_MAX_BWD = Kernel("neighbor_max_backward", "dh3d_neighbor_max_bwd",
                           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I])
-KERNELS = (KNN, KNN_TOPK, FPS, WEIGHTED_SUM, FLEX_MOMENTS, NEIGHBOR_MAX,
-           WEIGHTED_SUM_BWD, FLEX_MOMENTS_BWD, NEIGHBOR_MAX_BWD)
+KERNELS = (KNN, KNN_TOPK, KNN_WINDOW, FPS, WEIGHTED_SUM, FLEX_MOMENTS,
+           NEIGHBOR_MAX, WEIGHTED_SUM_BWD, FLEX_MOMENTS_BWD, NEIGHBOR_MAX_BWD)
 
 
 def reset_counts() -> None:

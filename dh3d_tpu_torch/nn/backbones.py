@@ -2,10 +2,14 @@
 
 Counterpart of `dh3d_tpu/nn/backbones.py:27-485` (reference
 `core/backbones.py`).  Module and parameter names follow the Flax tree.
-The Morton band, window and out-of-band plan of the JAX blocks are TPU
-kernel routing and have no counterpart: the ops here take any index.  What
-Morton order still changes is the order of the FPS selection
-(`sorted_order`), which the JAX package keeps ascending under Morton order.
+The out-of-band plan of the JAX blocks is TPU kernel routing and has no
+counterpart: the ops here take any index.  What Morton order still
+changes is the order of the FPS selection (`sorted_order`), which the JAX
+package keeps ascending under Morton order, and, in the legacy
+approximate mode (`exact=False`, the config's `morton_exact=False`), the
+neighbour sets: the kNN and the 3-NN of a level wider than 2048 points
+search a band of the Morton order (`ops.knn_window`), as the JAX blocks
+route them.
 """
 
 from __future__ import annotations
@@ -42,14 +46,26 @@ class FlexConvDilate(nn.Module):
     package).  Each neighbourhood (`knn`, `interp`'s idx) is held as an
     `ops.NeighborInverse` whose `nbh` is the indices, and every op over it
     gets that holder as `inverse=`, so that the backward builds each CSR
-    inverse once.  `knn`, when given, is such a holder of the level's kNN."""
+    inverse once.  `knn`, when given, is such a holder of the level's kNN.
+
+    `add_se`: "max_pool" (the SE block on the neighbourhood max),
+    "avg_pool" (on the neighbourhood mean, `ops.flex_avg` / knn) or "".
+    `exact=False` is the legacy Morton-band routing of
+    `dh3d_tpu/nn/backbones.py:66-131,164-196`: under Morton order, a level
+    with N % 256 == 0, npoint % 256 == 0 and 512 <= npoint (`use_banded`)
+    that is wider than 2048 points takes its kNN in a band of 512 rows and
+    its 3-NN in a band of 256; a level of at most 2048 points is searched
+    whole (the JAX full-table window), which is the exact search."""
 
     def __init__(self, din: int, dilate: int, knn: int,
-                 outdims: Sequence[int], concat: bool, add_se: bool,
-                 sorted_order: bool = False):
+                 outdims: Sequence[int], concat: bool, add_se: str,
+                 sorted_order: bool = False, exact: bool = True):
         super().__init__()
-        self.dilate, self.knn = dilate, knn
+        if add_se not in ("max_pool", "avg_pool", ""):
+            raise ValueError(f"add_se={add_se!r}")
+        self.dilate, self.knn, self.add_se = dilate, knn, add_se
         self.concat, self.sorted_order = concat, sorted_order
+        self.exact = exact
         dims = [din, *outdims]
         self.n_convs = len(outdims)
         for i in range(self.n_convs):
@@ -70,24 +86,30 @@ class FlexConvDilate(nn.Module):
             points_s, feat_s = xyz, feat
 
         m = points_s.shape[1]
+        use_banded = (self.sorted_order and xyz.shape[1] % 256 == 0
+                      and m % 256 == 0 and m >= 512)
+        windowed = use_banded and m > 2048 and not self.exact
         if knn is None:
             knn = lc.get("knn")
         if knn is None:
-            knn = ops.NeighborInverse(
-                ops.knn_bruteforce(points_s, self.knn)[0], m)
+            knn = ops.NeighborInverse(ops.knn_bruteforce(
+                points_s, self.knn, window=512 if windowed else None)[0], m)
             cache["knn"] = knn
 
         x = feat_s
         for i in range(self.n_convs):
             x = getattr(self, f"flexconv_{i}")(x, points_s, knn.nbh, knn)
-        if self.se is not None:
+        if self.add_se == "max_pool":
             x_pool, _ = ops.flex_pool(x, knn.nbh, knn, with_arg=False)
             x = self.se(x, x_pool)
+        elif self.add_se == "avg_pool":  # `core/backbones.py:81-83`
+            x = self.se(x, ops.flex_avg(x, knn.nbh, knn) * (1.0 / self.knn))
 
         if self.dilate > 1:
             interp = lc.get("interp")
             if interp is None:
-                dist, idx = ops.three_nn(xyz, points_s)
+                dist, idx = ops.three_nn(xyz, points_s,
+                                         window=256 if windowed else None)
                 interp = (dist, ops.NeighborInverse(idx, m))
                 cache["interp"] = interp
             dist, idx = interp
@@ -105,15 +127,16 @@ class BackboneLocalDilate(nn.Module):
     (points, feat, stage 2's level cache)."""
 
     def __init__(self, featdim: int = 128, dilate2: int = 8,
-                 sorted_order: bool = False):
+                 sorted_order: bool = False, exact: bool = True):
         super().__init__()
         self.initconv = ConvPointsetBN(3, 32)
         self.stage1 = FlexConvDilate(32, dilate=1, knn=8, outdims=(64, 64),
-                                     concat=False, add_se=True)
+                                     concat=False, add_se="max_pool")
         self.before_stage2_conv1d = Conv1x1(64, 64)
         self.stage2 = FlexConvDilate(64, dilate=dilate2, knn=8,
                                      outdims=(128, 128), concat=True,
-                                     add_se=True, sorted_order=sorted_order)
+                                     add_se="max_pool",
+                                     sorted_order=sorted_order, exact=exact)
         self.local_stage1_shortcut = Conv1x1(64, 128)
         self.final_fc = Conv1x1(128, featdim) if featdim < 128 else None
 
@@ -177,13 +200,13 @@ class GlobalBeforeAssemble(nn.Module):
 
     def __init__(self, din: int, gl_dilate: int, knn_num: int,
                  gl_dims: Sequence[int], concat_xyz: bool,
-                 sorted_order: bool):
+                 sorted_order: bool, exact: bool = True):
         super().__init__()
         self.concat_xyz = concat_xyz
         self.global_before_assemble = FlexConvDilate(
             din + 3 if concat_xyz else din, dilate=gl_dilate, knn=knn_num,
-            outdims=gl_dims, concat=False, add_se=False,
-            sorted_order=sorted_order)
+            outdims=gl_dims, concat=False, add_se="",
+            sorted_order=sorted_order, exact=exact)
 
     def forward(self, points, localdesc, level_cache=None):
         if self.concat_xyz:
@@ -191,6 +214,29 @@ class GlobalBeforeAssemble(nn.Module):
         gpoints, feat, _ = self.global_before_assemble(
             points, localdesc, level_cache=level_cache)
         return gpoints, feat
+
+
+class GlobalBeforeAssembleConv1d(nn.Module):
+    """global_before_assemble_conv1d (`core/backbones.py:189-196`,
+    `dh3d_tpu/nn/backbones.py:369-386`): pointwise 1x1 convs (Dense, BN,
+    relu) `global_before_assemble_conv1{i}`, no neighbourhood."""
+
+    def __init__(self, din: int, gl_dims: Sequence[int], concat_xyz: bool):
+        super().__init__()
+        self.concat_xyz = concat_xyz
+        dims = [din + 3 if concat_xyz else din, *gl_dims]
+        self.n_convs = len(gl_dims)
+        for i in range(self.n_convs):
+            self.add_module(f"global_before_assemble_conv1{i}",
+                            Conv1x1(dims[i], dims[i + 1]))
+
+    def forward(self, points, localdesc):
+        x = localdesc
+        if self.concat_xyz:
+            x = torch.cat([points, x], dim=-1)
+        for i in range(self.n_convs):
+            x = getattr(self, f"global_before_assemble_conv1{i}")(x)
+        return points, x
 
 
 class ContextGating(nn.Module):

@@ -16,6 +16,7 @@ thetas (`layers.py:76-83,139-141`), zero position and feature biases.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable
 
@@ -78,6 +79,7 @@ class BatchNorm(nn.Module):
     def __init__(self, features: int, momentum: float = 0.9):
         super().__init__()
         self.momentum = momentum
+        self.update_statistics = True  # off in a remat recompute
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -88,14 +90,31 @@ class BatchNorm(nn.Module):
             dims = tuple(range(x.dim() - 1))
             mean = x.mean(dims)
             var = torch.clamp_min((x * x).mean(dims) - mean * mean, 0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.mean.copy_(m * self.mean + (1 - m) * mean)
-                self.var.copy_(m * self.var + (1 - m) * var)
+            if self.update_statistics:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.mean.copy_(m * self.mean + (1 - m) * mean)
+                    self.var.copy_(m * self.var + (1 - m) * var)
         else:
             mean, var = self.mean, self.var
         mul = torch.rsqrt(var + self.epsilon) * self.scale
         return (x - mean) * mul + self.bias
+
+
+@contextlib.contextmanager
+def frozen_statistics(module: nn.Module):
+    """While entered, the BatchNorms of `module` normalise with the batch's
+    statistics but leave their running statistics alone: the recompute of
+    a checkpointed forward (`remat`), whose first run has moved them (in
+    JAX the recompute's state updates are dropped)."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.update_statistics = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_statistics = True
 
 
 class FlexConv(nn.Module):
@@ -167,6 +186,60 @@ class Conv1x1(nn.Module):
         if self.norm is not None:
             x = self.norm(x)
         return self.act(x)
+
+
+class FlexAvg(nn.Module):
+    """Flex_Avg layer (`core/layers.py:342-436`): a frozen flex conv with
+    zero theta and identity bias, the neighbourhood sum `ops.flex_avg`;
+    the caller scales by 1/knn (`core/backbones.py:82`).  No parameters."""
+
+    def __init__(self, filters: int):
+        super().__init__()
+        self.filters = filters
+
+    def forward(self, feat, pos, nbh, inverse=None):
+        if feat.shape[-1] != self.filters:
+            raise ValueError("Flex_Avg's identity bias needs Din == Dout: "
+                             f"{feat.shape[-1]} != {self.filters}")
+        return ops.flex_avg(feat, nbh, inverse)
+
+
+class FlexConvTranspose(nn.Module):
+    """FlexConvolutionTranspose layer (`core/layers.py:483-561`), on the
+    op `ops.flex_deconv`; not used by the DH3D graph.  Its parameters
+    start as Flax's: a glorot_uniform theta (fan in Dp * Din), zero
+    biases."""
+
+    def __init__(self, din: int, features: int, use_feature_bias: bool = True,
+                 dp: int = 3):
+        super().__init__()
+        self.position_theta = glorot_uniform_param(
+            dp, din, features, fan_in=dp * din, fan_out=features)
+        self.position_bias = nn.Parameter(torch.zeros(din, features))
+        if use_feature_bias:
+            self.feature_bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, feat, pos, nbh, inverse=None):
+        y = ops.flex_deconv(feat, pos, nbh, self.position_theta,
+                            self.position_bias, inverse)
+        if hasattr(self, "feature_bias"):
+            y = y + self.feature_bias
+        return y
+
+
+class SEBottleneck(nn.Module):
+    """se_bottleneck (`core/backbones.py:33-42`): the non-residual
+    squeeze-excite, x * sigmoid(f2(relu(f1(pool_x)))), the squeeze convs
+    without BatchNorm.  `din`: pool_x's width (ch_out unless given)."""
+
+    def __init__(self, ch_out: int, din: int | None = None):
+        super().__init__()
+        self.f1 = Conv1x1(din or ch_out, ch_out // 4, bn=False,
+                          act=torch.relu)
+        self.f2 = Conv1x1(ch_out // 4, ch_out, bn=False, act=torch.sigmoid)
+
+    def forward(self, x, pool_x):
+        return x * self.f2(self.f1(pool_x))
 
 
 class SEResBottleneck(nn.Module):

@@ -2,7 +2,12 @@
 attention-weighted NetVLAD global descriptor.
 
 Counterpart of `dh3d_tpu/nn/model.py:24-276` (reference
-`core/model.py:33-255`), f32 only, exact neighbour sets (`morton_exact`).
+`core/model.py:33-255`), f32 only.  Neighbour sets are exact
+(`morton_exact`, the default) or, with `morton_exact=False`, the legacy
+approximate mode's Morton bands (`ops.knn_window`): the full-resolution
+kNN of a Morton-ordered cloud of N >= 1024, N % 256 == 0, in a band of 512
+rows, and the wide levels' as `backbones.FlexConvDilate` routes them.
+`remat` recomputes the local backbone in the backward (train mode).
 The `outs` dict carries the same keys as the JAX model.  `self.training`
 is the JAX `train` flag: BatchNorm on batch statistics, except in the
 groups a config freezes (`FREEZE_GROUPS`), which stay on their running
@@ -13,13 +18,16 @@ order, which the losses read (`dh3d_tpu/nn/model.py:126-131`).
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dh3d_tpu_torch import ops
 from dh3d_tpu_torch.config import dotdict
 from dh3d_tpu_torch.nn import backbones
-from dh3d_tpu_torch.nn.layers import l2_normalize
+from dh3d_tpu_torch.nn.layers import frozen_statistics, l2_normalize
 
 
 # frozen module groups per config flag (`dh3d_tpu/train/trainer.py:72-76`)
@@ -54,31 +62,36 @@ class DH3D(nn.Module):
         if (cfg.compute_dtype or "float32") != "float32":
             raise NotImplementedError(
                 f"compute_dtype={cfg.compute_dtype!r}: the port runs f32 only")
-        if cfg.morton_exact is False:
-            raise NotImplementedError(
-                "morton_exact=False (banded approximate kNN) is not ported")
         gb = cfg.global_backbone or "global_before_assemble"
-        if cfg.extract_global and gb != "global_before_assemble":
-            raise NotImplementedError(f"global_backbone={gb!r} is not ported")
+        if gb not in ("global_before_assemble",
+                      "global_before_assemble_conv1d"):
+            raise ValueError(f"global_backbone={gb!r}")
         featdim = cfg.featdim or 128
         local_dim = featdim if featdim < 128 else 128
         sorted_order = bool(cfg.morton_order)
+        self.exact = cfg.morton_exact is not False
         self.share_level = bool(
-            cfg.extract_global
+            cfg.extract_global and gb == "global_before_assemble"
             and (cfg.gl_dilate or 8) == (cfg.dilate or 8) > 1
             and cfg.share_level_cache is not False)
         self.local_backbone = backbones.BackboneLocalDilate(
             featdim=featdim, dilate2=cfg.dilate or 8,
-            sorted_order=sorted_order)
+            sorted_order=sorted_order, exact=self.exact)
         if cfg.detection:
             self.detection_block = backbones.DetectionBlock(
                 local_dim, use_softplus=bool(cfg.use_softplus))
         if cfg.extract_global:
             gl_dims = tuple(cfg.gl_dims or (256,))
-            self.global_backbone = backbones.GlobalBeforeAssemble(
-                local_dim, gl_dilate=cfg.gl_dilate or 8,
-                knn_num=cfg.knn_num, gl_dims=gl_dims,
-                concat_xyz=bool(cfg.concat_xyz), sorted_order=sorted_order)
+            if gb == "global_before_assemble":
+                self.global_backbone = backbones.GlobalBeforeAssemble(
+                    local_dim, gl_dilate=cfg.gl_dilate or 8,
+                    knn_num=cfg.knn_num, gl_dims=gl_dims,
+                    concat_xyz=bool(cfg.concat_xyz),
+                    sorted_order=sorted_order, exact=self.exact)
+            else:
+                self.global_backbone = backbones.GlobalBeforeAssembleConv1d(
+                    local_dim, gl_dims=gl_dims,
+                    concat_xyz=bool(cfg.concat_xyz))
             self.globalatt = backbones.GlobalAttBlock(gl_dims[-1])
             self.global_assemble = backbones.NetVLAD(
                 gl_dims[-1], add_batch_norm=bool(cfg.add_batch_norm))
@@ -115,7 +128,13 @@ class DH3D(nn.Module):
                 ).reshape(rows.shape)
 
         if knn_inds is None:
-            knn_inds, _ = ops.knn_bruteforce(points, cfg.knn_num)
+            # the legacy mode's full-resolution band (`dh3d_tpu/nn/
+            # model.py:104-115`)
+            N = points.shape[1]
+            banded_l0 = cfg.morton_order and N % 256 == 0 and N >= 1024
+            knn_inds, _ = ops.knn_bruteforce(
+                points, cfg.knn_num,
+                window=512 if banded_l0 and not self.exact else None)
 
         def unpermute(x):
             if inv_perm is None or self.training:
@@ -124,8 +143,16 @@ class DH3D(nn.Module):
 
         outs = {"xyz": unpermute(points), "knn_indices": knn_inds}
 
-        newpoints, localdesc, level_cache = self.local_backbone(points,
-                                                                knn_inds)
+        if cfg.remat and self.training and torch.is_grad_enabled():
+            # recompute the backbone in the backward (`nn.remat`), its
+            # BatchNorms then leaving their running statistics alone
+            newpoints, localdesc, level_cache = checkpoint(
+                self.local_backbone, points, knn_inds, use_reentrant=False,
+                context_fn=lambda: (contextlib.nullcontext(),
+                                    frozen_statistics(self.local_backbone)))
+        else:
+            newpoints, localdesc, level_cache = self.local_backbone(
+                points, knn_inds)
         if not self.share_level:
             level_cache = None
         elif (cfg.knn_num or 8) != 8:  # stage 2's kNN is knn8
@@ -157,8 +184,12 @@ class DH3D(nn.Module):
                 outs["att_sampled"] = ops.gather_point(det_att, kp_idx)[..., 0]
 
         if cfg.extract_global:
-            gpoints, forglobal = self.global_backbone(
-                newpoints, localdesc, level_cache=level_cache)
+            if self.share_level:
+                gpoints, forglobal = self.global_backbone(
+                    newpoints, localdesc, level_cache=level_cache)
+            else:
+                gpoints, forglobal = self.global_backbone(newpoints,
+                                                          localdesc)
             if cfg.global_subsample and cfg.global_subsample > 0:
                 gpoints, forglobal, _ = ops.subsample(
                     gpoints, forglobal, cfg.global_subsample)

@@ -2,20 +2,26 @@
 
 Kernelled ops (CUDA kernel for CUDA tensors, plain PyTorch for CPU
 tensors): `knn` (and `knn_bruteforce`, `knn_bruteforce_pairwise`,
-`three_nn` on it; kernel G's launch plan `topk_plan` and its pre-pass
-alone, `topk_prepass`), `farthest_point_sample` (launch
-plan `fps_plan`), `weighted_sum` (and
-`conv_pointset`, `three_interpolate` on it) with its backward
-`weighted_sum_backward`, `flex_moments` (and `flex_conv` on it) with its
-backward `flex_moments_backward`, `neighbor_max` (and `flex_pool`) with its
-backward `neighbor_max_backward` (launch plan of the three forwards:
-`row_plan`); `NeighborInverse` shares the CSR inverse those
-backwards read among the ops over one neighbourhood.
+`three_nn`, `knn_point` on it; kernel G's launch plan `topk_plan` and its
+pre-pass alone, `topk_prepass`), `knn_window` (the legacy Morton-band
+kNN, kernel H: `knn_bruteforce` and `three_nn` take it when given a
+window; its band starts `win_start`), `farthest_point_sample` (launch
+plan `fps_plan`), `weighted_sum` (and `conv_pointset`, `flex_avg`,
+`three_interpolate` on it) with its backward `weighted_sum_backward`,
+`flex_moments` (and `flex_conv` on it) with its backward
+`flex_moments_backward` (and `flex_deconv` on it), `neighbor_max` (and
+`flex_pool`) with its backward `neighbor_max_backward` (launch plan of
+the three forwards: `row_plan`); `NeighborInverse` shares the CSR inverse
+those backwards read among the ops over one neighbourhood.  Plain
+PyTorch, as in the JAX package: `group_point`, the ball queries,
+`select_top_k`, `prob_sample`, the gathers and the Morton order.
 """
 
 from dh3d_tpu_torch.ops.flex import (
     conv_pointset,
+    flex_avg,
     flex_conv,
+    flex_deconv,
     flex_pool,
     gather_neighbors,
 )
@@ -24,14 +30,23 @@ from dh3d_tpu_torch.ops.interpolate import (
     three_interpolate,
     three_nn,
 )
-from dh3d_tpu_torch.ops.grouping import group_point
+from dh3d_tpu_torch.ops.grouping import (
+    group_point,
+    knn_point,
+    query_ball_point,
+    query_ball_point2,
+    select_top_k,
+)
 from dh3d_tpu_torch.ops.knn import (
     knn,
     knn_bruteforce,
     knn_bruteforce_pairwise,
     knn_plain,
+    knn_window,
+    knn_window_plain,
     topk_plan,
     topk_prepass,
+    win_start,
 )
 from dh3d_tpu_torch.ops.morton import morton_codes, morton_perm
 from dh3d_tpu_torch.ops.neighborhood import (
@@ -57,19 +72,22 @@ from dh3d_tpu_torch.ops.sampling import (
     fps_plain,
     fps_plan,
     gather_point,
+    prob_sample,
     subsample,
 )
 
 __all__ = [
-    "NeighborInverse", "conv_pointset", "farthest_point_sample", "flex_conv",
+    "NeighborInverse", "conv_pointset", "farthest_point_sample", "flex_avg",
+    "flex_conv", "flex_deconv",
     "flex_moments", "flex_moments_backward", "flex_moments_plain", "flex_pool",
     "flex_weights", "fps_plain", "fps_plan", "gather_neighbors", "gather_point",
     "group_point", "inverse_distance_weights", "inverse_neighbors", "knn",
-    "knn_bruteforce", "knn_bruteforce_pairwise", "knn_plain", "topk_plan",
-    "topk_prepass",
+    "knn_bruteforce", "knn_bruteforce_pairwise", "knn_plain", "knn_point",
+    "knn_window", "knn_window_plain", "topk_plan", "topk_prepass",
     "morton_codes", "morton_perm", "neighbor_max", "neighbor_max_backward",
     "neighbor_max_backward_plain", "neighbor_max_plain",
-    "neighbor_max_with_slot", "row_plan", "subsample",
+    "neighbor_max_with_slot", "prob_sample", "query_ball_point",
+    "query_ball_point2", "row_plan", "select_top_k", "subsample",
     "three_interpolate", "three_nn", "weighted_sum", "weighted_sum_backward",
-    "weighted_sum_backward_plain", "weighted_sum_plain",
+    "weighted_sum_backward_plain", "weighted_sum_plain", "win_start",
 ]

@@ -1,8 +1,9 @@
 """The FlexConv op family on the neighbourhood kernels.
 
-Counterpart of `dh3d_tpu/ops/flex.py:33,150-217,251-281,314-382`.  Each op
-is one neighbourhood reduction (kernel C or D, `ops/neighborhood.py`)
-followed, where the op has weights, by one plain matrix product.
+Counterpart of `dh3d_tpu/ops/flex.py:33,150-382`.  Each op is one
+neighbourhood reduction (kernel C or D, `ops/neighborhood.py`) followed,
+where the op has weights, by one plain matrix product; `flex_deconv`, the
+transpose of `flex_conv`, is one matrix product followed by kernel E.
 
 flex_conv uses the moment identity of the JAX package: with neighbourhood
 N(n) (k = 0 is the centre n0) and delta_k = pos[nk] - pos[n0],
@@ -20,15 +21,17 @@ from __future__ import annotations
 import torch
 
 from dh3d_tpu_torch.ops.neighborhood import (
+    _flex_moments_forward,
     flex_moments,
+    flex_moments_backward,
     flex_weights,
     gather_neighbors,
     neighbor_max,
     weighted_sum,
 )
 
-__all__ = ["gather_neighbors", "flex_weights", "flex_conv", "flex_pool",
-           "conv_pointset"]
+__all__ = ["gather_neighbors", "flex_weights", "flex_conv", "flex_avg",
+           "flex_deconv", "flex_pool", "conv_pointset"]
 
 
 def flex_conv(features, positions, nbh, theta, bias, inverse=None):
@@ -41,6 +44,55 @@ def flex_conv(features, positions, nbh, theta, bias, inverse=None):
     m = flex_moments(features, positions, nbh, inverse)
     w = torch.cat([bias[None], theta], dim=0).reshape((1 + Dp) * Din, Dout)
     return m @ w
+
+
+def flex_avg(features, nbh, inverse=None):
+    """Neighbourhood sum, the `Flex_Avg` layer (`core/layers.py:342-436`,
+    `dh3d_tpu/ops/flex.py:220`): a flex conv with zero theta and identity
+    bias, out[n] = sum_k feat[nk]; the caller scales by 1/K.  Kernel C on
+    weights of 1: features [B, M, C], nbh [B, N, K] -> [B, N, C]."""
+    ones = torch.ones(*nbh.shape, 1, dtype=features.dtype,
+                      device=features.device)
+    return weighted_sum(features, nbh, ones, inverse)
+
+
+class FlexDeconvScatter(torch.autograd.Function):
+    """The scatter of `flex_deconv`: kernel E on positions forward
+    (`flex_moments_backward`), kernel C on positions backward
+    (`flex_moments`, its transpose)."""
+
+    @staticmethod
+    def forward(ctx, g, positions, nbh, inverse):
+        ctx.save_for_backward(positions, nbh)
+        return flex_moments_backward(g, positions, nbh, inverse)
+
+    @staticmethod
+    def backward(ctx, dout):
+        positions, nbh = ctx.saved_tensors
+        return (_flex_moments_forward(dout.contiguous(), positions, nbh),
+                None, None, None)
+
+
+def flex_deconv(features, positions, nbh, theta, bias, inverse=None):
+    """Transpose flex convolution (`flex_deconv_kernel.cc:49-69`,
+    `dh3d_tpu/ops/flex.py:284-311`): each point n scatters
+    (bias + delta_k . theta) . feat[n0] into its neighbours nk, delta_k =
+    pos[nk] - pos[n0], n0 = nbh[n, 0].
+
+    features [B, N, Din], positions [B, N, Dp] (Dp <= 3), nbh [B, N, K]
+    int64 in [0, N), theta [Dp, Din, Dout], bias [Din, Dout] -> [B, N,
+    Dout].  Written as g[n] = feat[n0] @ [bias; theta] (one matrix
+    product, [B*N, Din] x [Din, (1 + Dp)*Dout]), then
+    out[j] = sum over (n, k) with nbh[n, k] = j of [1, delta_k] . g[n]:
+    kernel E on positions, which sums each row in a fixed order (no
+    atomics).  Differentiable in features, theta and bias (the backward
+    of the scatter is kernel C); the positions get no gradient, as in the
+    other ops."""
+    Dp, Din, Dout = theta.shape
+    f_self = gather_neighbors(features, nbh[:, :, :1])[:, :, 0]  # [B, N, Din]
+    w = torch.cat([bias[None], theta], dim=0)  # [1 + Dp, Din, Dout]
+    g = f_self @ w.permute(1, 0, 2).reshape(Din, (1 + Dp) * Dout)
+    return FlexDeconvScatter.apply(g.contiguous(), positions, nbh, inverse)
 
 
 def flex_pool(features, nbh, inverse=None, with_arg=True):

@@ -1,8 +1,11 @@
 """Exact k nearest neighbours: kernels A (`csrc/knn.cu`, k <= 7) and G
-(`csrc/knn_topk.cu`, 8 <= k <= 128) and their plain version.
+(`csrc/knn_topk.cu`, 8 <= k <= 128) and their plain version; the windowed
+kNN of the legacy Morton-band mode: kernel H (`csrc/knn_window.cu`) and
+its plain version.
 
 Counterpart of `dh3d_tpu/ops/knn.py` and of the Pallas kernels
-`knn_pallas._knn_kernel_banded` (3-NN over the whole key table),
+`knn_pallas._knn_kernel_banded` (3-NN over the whole key table; a window
+of W < M key rows is `knn_window`),
 `knn_pallas._knn_kernel_packed` (self-kNN), `knn_pallas._knn_kernel`
 (exact cross kNN: the detection loss's k=16 queries,
 `knn_bruteforce_pairwise`) and `knn_pallas._knn_kernel_slab` (every k >=
@@ -37,6 +40,9 @@ MAX_K = 7
 TOPK_MAX_K = 128  # kernel G's largest k (`dh3d_knn_topk`)
 TOPK_CHUNK = 32  # keys a chunk of kernel G's sorted table
 _CHUNK_ELEMS = 1 << 23  # bounds the plain version's [B, chunk, Nk] d2 block
+TILE_Q = 256  # queries a band shares (`knn_banded`'s tile_q)
+WINDOW_ALIGN = 128  # a band starts on a multiple of it (`_win_start`)
+WINDOW_MAX_K = 32  # kernel H's largest k (`dh3d_knn_window`)
 
 
 def topk_plan(k: int) -> int:
@@ -132,11 +138,22 @@ def topk_prepass(query: torch.Tensor, keys: torch.Tensor):
     return table, boxes
 
 
-def knn_bruteforce(positions: torch.Tensor, k: int):
+def knn_bruteforce(positions: torch.Tensor, k: int,
+                   window: int | None = None):
     """k nearest neighbours of every point within its own cloud
     (`dh3d_tpu/ops/knn.py:61`): positions [B, N, 3] -> (idx [B, N, k]
-    int64, dist [B, N, k] Euclidean), ascending, self at slot 0."""
-    idx, d2 = knn(positions, positions, k)
+    int64, dist [B, N, k] Euclidean), ascending, self at slot 0.
+
+    `window` (the legacy Morton-band mode) routes as the JAX op does
+    (`dh3d_tpu/ops/knn.py:90-102`): with N % 256 == 0 and window < N, the
+    k nearest within each query tile's band of `window` rows
+    (`knn_window`); else the exact kNN.  A window of the whole table is
+    the exact kNN, which `knn` computes."""
+    N = positions.shape[1]
+    if window is not None and N % TILE_Q == 0 and window < N:
+        idx, d2 = knn_window(positions, positions, k, window)
+    else:
+        idx, d2 = knn(positions, positions, k)
     return idx, torch.sqrt(d2)
 
 
@@ -148,3 +165,83 @@ def knn_bruteforce_pairwise(query: torch.Tensor, reference: torch.Tensor,
     ascending, the lowest index first among equal distances."""
     idx, d2 = knn(query, reference, k)
     return idx, torch.sqrt(d2)
+
+
+# ------------------------- the Morton-band kNN (H) -------------------------
+
+def win_start(n_queries: int, n_keys: int, window: int,
+              device=None) -> torch.Tensor:
+    """The first key row of each query tile's band: [n_queries // 256]
+    int64, s_i = floor(clip(c_i - window / 2, 0, n_keys - window) / 128) *
+    128 with c_i = ((2i + 1) * 256 * n_keys) // (2 * n_queries), the tile's
+    centre mapped proportionally onto the keys (`knn_pallas._win_start`).
+    Computed in 64 bits: the JAX kernel computes (2i + 1) * 256 * n_keys
+    in int32, which wraps for a self query above N = 32768 (there its
+    starts differ from these)."""
+    i = torch.arange(n_queries // TILE_Q, dtype=torch.int64, device=device)
+    centre = (2 * i + 1) * TILE_Q * n_keys // (2 * n_queries)
+    start = torch.clamp(centre - window // 2, 0, n_keys - window)
+    return start // WINDOW_ALIGN * WINDOW_ALIGN
+
+
+def knn_window_plain(query: torch.Tensor, keys: torch.Tensor, k: int,
+                     window: int):
+    """Plain PyTorch `knn_window`: each tile's queries against its band's
+    keys, direct distances and a stable sort, a few tiles at a time."""
+    B, N, _ = query.shape
+    T = N // TILE_Q
+    rows = win_start(N, keys.shape[1], window, query.device)[:, None] \
+        + torch.arange(window, device=query.device)  # [T, window]
+    q = query.reshape(B, T, TILE_Q, 3)
+    chunk = max(1, _CHUNK_ELEMS // max(1, B * TILE_Q * window))
+    idx, dist = [], []
+    for t0 in range(0, T, chunk):
+        r = rows[t0:t0 + chunk]
+        kw = keys[:, r]  # [B, t, window, 3]
+        qt = q[:, t0:t0 + chunk, :, None, :]  # [B, t, 256, 1, 3]
+        d = qt - kw[:, :, None]
+        d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) \
+            + d[..., 2] * d[..., 2]  # [B, t, 256, window]
+        vals, order = torch.sort(d2, dim=-1, stable=True)
+        idx.append(r[None, :, None, :].expand(B, -1, TILE_Q, -1).gather(
+            -1, order[..., :k]))
+        dist.append(vals[..., :k])
+    return (torch.cat(idx, 1).reshape(B, N, k),
+            torch.cat(dist, 1).reshape(B, N, k))
+
+
+def knn_window(query: torch.Tensor, keys: torch.Tensor, k: int,
+               window: int):
+    """The k nearest keys of every query within its tile's Morton band:
+    the W < M case of `knn_pallas._knn_kernel_banded`, unpacked (exact d2,
+    as `knn_banded(..., packed=False)`).
+
+    query [B, N, 3] and keys [B, M, 3] float32, contiguous, both sorted
+    along the same Z-order curve; N % 256 == 0, window % 128 == 0, window
+    <= M and 1 <= k <= min(window, 32), else ValueError.  Query tile i
+    (rows [256 i, 256 i + 256)) searches keys [s_i, s_i + window),
+    s_i = `win_start`.  Returns (idx [B, N, k] int64 into the whole key
+    table, d2 [B, N, k] float32), ascending by (d2, index): d2 as `knn`
+    builds it, the lowest index first among equal distances.
+
+    CPU tensors take the plain version; CUDA tensors launch kernel H."""
+    kernels.check(query, "query", torch.float32, (None, None, 3))
+    B, N = query.shape[:2]
+    kernels.check(keys, "keys", torch.float32, (B, None, 3))
+    M = keys.shape[1]
+    if not (N > 0 and N % TILE_Q == 0 and window % WINDOW_ALIGN == 0
+            and 0 < window <= M and 1 <= k <= min(window, WINDOW_MAX_K)):
+        raise ValueError(
+            f"knn_window: N={N} (a positive multiple of {TILE_Q}), "
+            f"window={window} "
+            f"(a multiple of {WINDOW_ALIGN}, <= M={M}), k={k} (1 <= k <= "
+            f"min(window, {WINDOW_MAX_K}))")
+    if not kernels.on_cuda(query, keys):
+        return knn_window_plain(query, keys, k, window)
+    dev = query.device
+    idx = torch.empty(B, N, k, dtype=torch.int64, device=dev)
+    d2 = torch.empty(B, N, k, dtype=torch.float32, device=dev)
+    kernels.KNN_WINDOW.launch(dev, query.data_ptr(), keys.data_ptr(),
+                              idx.data_ptr(), d2.data_ptr(), B, N, M, k,
+                              window)
+    return idx, d2

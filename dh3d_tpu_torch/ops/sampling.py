@@ -96,6 +96,17 @@ def gather_point(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         points, 1, idx[..., None].expand(-1, -1, points.shape[-1]))
 
 
+def prob_sample(inp: torch.Tensor, inp_r: torch.Tensor) -> torch.Tensor:
+    """Inverse-CDF categorical sampling (`tf_sampling_g.cu:7-104`,
+    `dh3d_tpu/ops/sampling.py:70-78`): inp [B, N] an unnormalised
+    distribution, inp_r [B, M] uniforms in [0, sum) -> [B, M] int64, the
+    first index whose running sum reaches each uniform (a left
+    `searchsorted` of the cumulative sum), clipped to [0, N - 1]."""
+    cdf = torch.cumsum(inp, dim=-1)
+    idx = torch.searchsorted(cdf, inp_r.contiguous(), side="left")
+    return torch.clamp(idx, 0, inp.shape[-1] - 1)
+
+
 def subsample(points, feat, targetnum, kp_idx=None, sorted_order=False):
     """FPS (or the given indices) and the gather of xyz and features
     (`core/tf_utils.py:86-96`).  `sorted_order=True` returns the FPS

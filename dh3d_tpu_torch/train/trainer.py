@@ -45,8 +45,9 @@ from dh3d_tpu_torch.losses import compute_total_loss
 from dh3d_tpu_torch.nn.convert import load_flax, load_npz
 from dh3d_tpu_torch.nn.model import DH3D, frozen_groups
 
-# config keys of the JAX trainer that this port does not run yet
-_UNPORTED = ("remat", "cross_device_mining", "bn_axis_name")
+# config keys of the JAX trainer that this port does not run yet (the
+# parallel path)
+_UNPORTED = ("cross_device_mining", "bn_axis_name")
 
 
 def check_config(cfg) -> None:

@@ -23,7 +23,11 @@ are also `flex_moments`' on the positions.  The backwards also run at the
 train step's own shapes, where they must give the same bits with the CSR
 inverse shared and built in the call, and on a second run.  The
 train step on the card is held to the CPU's as `chip_smoke.py` phase 7
-holds it (see there).
+holds it (see there).  Kernel H (the Morton band's kNN, `knn_window`)
+must equal its plain version exactly, self and cross, at each list length
+it compiles, on random, integer-grid and duplicated clouds; its entry
+point refuses sizes itself; the legacy forward launches it once and
+matches the CPU's.
 """
 
 import importlib
@@ -894,3 +898,85 @@ def test_repeatability_on_card_equals_cpu(device):
     assert kernels.KNN_TOPK.launches == before + 4  # one NMS a cloud
     assert gpu == repeatability_curve(extract, clouds, ks=(32, 128),
                                       device="cpu")
+
+
+# ------------------------ kernel H: the Morton band ------------------------
+
+def _band_cloud(kind, n, g):
+    """[2, n, 3] Morton-sorted points on the CPU for one kind of cloud."""
+    if kind == "grid":  # many equal distances: the lowest id wins
+        pos = torch.randint(0, 6, (2, n, 3), generator=g).float()
+    else:
+        pos = torch.randn(2, n, 3, generator=g) * 30
+    if kind == "duplicates":
+        pos[:, n // 2:] = pos[:, :n // 2][:, torch.randperm(n // 2,
+                                                            generator=g)]
+    perm, _ = T.morton_perm(pos)
+    return torch.gather(pos, 1, perm[..., None].expand(-1, -1, 3))
+
+
+@pytest.mark.parametrize("kind", ["normal", "grid", "duplicates"])
+@pytest.mark.parametrize("n,m,window,k", [
+    (1024, 1024, 512, 8), (2048, 2048, 512, 8), (1024, 1024, 128, 1),
+    (1024, 1024, 256, 4), (1024, 1024, 512, 16), (768, 768, 256, 32),
+    (4096, 512, 256, 3), (2048, 256, 256, 3), (1536, 1000, 384, 5)])
+def test_knn_window_equals_plain(device, kind, n, m, window, k):
+    """Kernel H, self (n == m) and cross (the 3-NN's queries far more
+    than the keys), at each list length it compiles (k <= 4, 8, 16, 32):
+    ids and d2 bit for bit equal to the plain version, each id in its
+    tile's band, on two runs."""
+    g = torch.Generator().manual_seed(n + m + window + k)
+    keys = _band_cloud(kind, m, g)
+    query = keys if n == m else _band_cloud(kind, n, g)
+    pidx, pd2 = T.knn_window_plain(query, keys, k, window)
+    q, kd = query.contiguous().to(device), keys.contiguous().to(device)
+    idx, d2 = _counted(kernels.KNN_WINDOW, T.knn_window, q, kd, k, window)
+    assert torch.equal(idx.cpu(), pidx) and torch.equal(d2.cpu(), pd2)
+    again = T.knn_window(q, kd, k, window)
+    assert torch.equal(again[0], idx) and torch.equal(again[1], d2)
+    start = T.win_start(n, m, window).repeat_interleave(256)[None, :, None]
+    assert ((pidx >= start) & (pidx < start + window)).all()
+
+
+def test_knn_window_entry_point_refuses_what_it_does_not_take(device):
+    """The C entry point checks the sizes itself: each refusal raises
+    ValueError and launches nothing."""
+    x = torch.zeros(1, 512, 3, device=device)
+    out = torch.empty(1, 512, 33, dtype=torch.int64, device=device)
+    d2 = torch.empty(1, 512, 33, device=device)
+    before = kernels.KNN_WINDOW.launches
+    for n, m, k, w in ((300, 512, 8, 128), (512, 512, 8, 192),
+                       (512, 256, 8, 384), (512, 512, 33, 512),
+                       (512, 512, 0, 128)):
+        with pytest.raises(ValueError, match="knn_window"):
+            kernels.KNN_WINDOW.launch(device, x.data_ptr(), x.data_ptr(),
+                                      out.data_ptr(), d2.data_ptr(), 1, n, m,
+                                      k, w)
+    assert kernels.KNN_WINDOW.launches == before
+
+
+def test_legacy_forward_on_card_launches_h_and_matches_cpu(device):
+    """The main-path model with morton_exact=False at [2, 2048]: H once
+    (the full-resolution kNN), neighbour ids equal to the CPU's, the
+    descriptors within `chip_smoke.py` phase 5's 1e-4."""
+    from dh3d_tpu_torch.entry import entry_config, entry_points, entry_weights
+    from dh3d_tpu_torch.eval import make_forward
+    from dh3d_tpu_torch.nn import DH3D, load_flax
+
+    outs = []
+    for dev in (device, torch.device("cpu")):
+        cfg = entry_config()
+        cfg.morton_exact = False
+        model = DH3D(cfg).to(dev)
+        load_flax(model, entry_weights())
+        pts = entry_points(2, 2048, seed=3) / np.float32(30.0)
+        kernels.reset_counts()
+        outs.append({k: v.cpu() for k, v in make_forward(cfg, model)(
+            pts).items()})
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert kernels.counts()["knn_window"] == 1
+    card, cpu = outs
+    assert torch.equal(card["knn_indices"], cpu["knn_indices"])
+    for key in ("local_desc", "attention", "global_desc"):
+        assert (card[key] - cpu[key]).abs().max().item() <= 1e-4, key

@@ -371,13 +371,15 @@ def test_cpu_path_never_builds_or_counts(cloud, knn8):
     kernels.reset_counts()
     T.knn_bruteforce(_t(cloud), K)
     T.knn_bruteforce(_t(cloud), 50)  # kernel G's plain version
+    T.knn_window(_t(cloud[:, :256]), _t(cloud), 8, 128)  # kernel H's
     T.farthest_point_sample(_t(cloud), 16)
     T.flex_pool(_t(cloud), _t(knn8))
     T.conv_pointset(_t(cloud), _t(knn8), torch.ones(3, 2), torch.zeros(2))
     f = _t(cloud).requires_grad_()
     T.flex_pool(f, _t(knn8))[0].sum().backward()  # kernel F's plain version
     T.flex_moments(f, _t(cloud), _t(knn8)).sum().backward()  # C and E on pos
-    assert kernels.counts() == {"knn": 0, "knn_topk": 0, "fps": 0,
+    assert kernels.counts() == {"knn": 0, "knn_topk": 0, "knn_window": 0,
+                                "fps": 0,
                                 "weighted_sum": 0, "flex_moments": 0,
                                 "neighbor_max": 0,
                                 "weighted_sum_backward": 0,

@@ -422,19 +422,20 @@ def test_smart_init_partial_load():
 
 
 def test_unported_options_raise():
-    """What the port still refuses; device_pairgen and augment_on_device
-    run since the training data path was ported (`tests/test_torch_data.py`
-    holds them to the JAX trainer)."""
+    """What the port still refuses (the parallel keys and bf16);
+    device_pairgen and augment_on_device run since the training data path
+    was ported (`tests/test_torch_data.py` holds them to the JAX trainer),
+    remat since it was ported (`tests/test_torch_surface.py`)."""
     from dh3d_tpu_torch.train import check_config
 
-    for key, value in (("remat", True), ("cross_device_mining", True),
+    for key, value in (("cross_device_mining", True),
                        ("bn_axis_name", "data"),
                        ("compute_dtype", "bfloat16")):
         cfg = tcfg.get_config("detection_config")
         cfg[key] = value
         with pytest.raises(NotImplementedError):
             check_config(cfg)
-    for key in ("device_pairgen", "augment_on_device"):
+    for key in ("device_pairgen", "augment_on_device", "remat"):
         cfg = tcfg.get_config("detection_config")
         cfg[key] = True
         check_config(cfg)
@@ -481,7 +482,7 @@ def test_train_entry_point_refuses_what_it_cannot_do(tmp_path):
     with pytest.raises(ValueError, match="--data_basedir"):
         train_main(["--cfg", "detection_config", "--device", "cpu",
                     "--logdir", str(tmp_path)])
-    for key, value in (("remat", "true"), ("cross_device_mining", "true"),
+    for key, value in (("cross_device_mining", "true"),
                        ("bn_axis_name", '"data"'),
                        ("compute_dtype", '"bfloat16"')):
         with pytest.raises(NotImplementedError, match=key):
