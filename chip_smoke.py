@@ -101,7 +101,10 @@ result line:
      from R, positives the plain 1-NN); (b) the host pair path, 2 steps;
      (c) `global_config` with `models/demo_stage3.config.json`'s values
      ([24, 8192], presorted) and `augment_on_device`, from
-     `models/demo_stage3.npz`, 2 steps.  Each: metrics finite; the step on
+     `models/demo_stage3.npz`, 2 steps; (d) the curriculum's warm start
+     from the port's own checkpoints: one `basic_config` step, then one
+     `detection_config` step with `--load` its logdir, which must restore
+     every tensor stage 1 saved.  Each: metrics finite; the step on
      CUDA events, clouds/s on the host clock, the wait in `next(batches)`
      and its share of the step, the loader's ms a cloud alone, peak memory.
  11. the pair generation at [2, 8192], 64 anchors, on the card and on the
@@ -133,8 +136,9 @@ result line:
      (`knn_window`) against its plain version, ids and d2 bit for bit, at
      the legacy path's shapes (the self kNN k=8 W=512 at [20, 8192] and
      [1, 16384]; a windowed level's self kNN at [1, 4096] and its 3-NN W=256
-     from [1, 32768]), each with its device time, bound, A's instruction
-     floor over its pairs and one launch a call; every tile's band start of
+     from [1, 32768]; `window_cases`), each at its plan (`window_plan`:
+     lanes a query) with its device time, bound, A's instruction floor
+     over its pairs and one launch a call; every tile's band start of
      `WINDOW_START_SHAPES` read back from H against the formula; (b) the
      main-path model with morton_exact=False at [20, 8192]: over one
      forward H once, G one time fewer than phase 4's, A-D as often, the
@@ -162,11 +166,12 @@ launch counts) and writes OUT/ab_NAME.json (OUT defaults to `chiprun_out`
 beside this script): for every case of `knn_fps_cases` (A, G and B with
 the tree's own plans), of `forward_cases` (C and D as the tree's path
 calls them: a tree from before `flex_moments` builds the weight tensor
-first, and that build is also timed alone) and of `backward_cases`, the output's sha256 and its
-device time (E and F called without an inverse: the tree's own route, which builds the
-inverse in the call, as the parent of the shared inverse did on its path;
-and the build alone); one full-width forward and one batch-1 extraction
-forward at N=16384 (`models/demo_stage2`, as phase 9 runs it): output
+first, and that build is also timed alone), of `window_cases` (H at the
+tree's own plan) and of `backward_cases`, the output's sha256 and its
+device time (E and F called without an inverse: the tree's own route,
+which builds the inverse in the call, as the parent of the shared inverse
+did on its path; and the build alone); one full-width forward and one
+batch-1 extraction forward at N=16384 (`models/demo_stage2`, as phase 9 runs it): output
 hashes, median of 10 with CUDA events, and the profiler's device time of
 one call by kernel class, so the device's idle share; over one full-width
 train step, the inverses built, the launches of E and F, the profiler's
@@ -179,10 +184,12 @@ trees have) and prints the times side by side.
 
 times every plan kernels G and B take at each shape of `knn_fps_cases`
 (A, and both plans of G, at A's shapes), each output checked equal to the
-plain version, and kernels C and D at each shape of `forward_cases` at 8,
-16 and 32 lanes a row, each output checked equal to the path's, into
-OUT/sweep.json: the measurements `topk_plan`, the line `knn` draws
-between A and G (`ops.knn.MAX_K`), `fps_plan` and `row_plan` were chosen
+plain version, kernel H at each shape of `window_cases` at every plan
+(1-32 lanes a query), each output checked equal to the plain version, and
+kernels C and D at each shape of `forward_cases` at 8, 16 and 32 lanes a
+row, each output checked equal to the path's, into OUT/sweep.json: the
+measurements `topk_plan`, the line `knn` draws between A and G
+(`ops.knn.MAX_K`), `fps_plan`, `window_plan` and `row_plan` were chosen
 from.
 """
 
@@ -1675,8 +1682,10 @@ def disk_phase(torch, T, work, train_launches, device):
     width, warm-started from the shipped checkpoints, on a pool of seeded
     scans: (a) stage 2 as demo_stage2 trained (device pairs from presorted
     clouds), (b) the host pair path, (c) stage 3 with on-device
-    augmentation.  Returns (launches over one counted step of (a), the
-    card's pairs of (a)'s first batch for phase 11, report)."""
+    augmentation, (d) a stage-1 step and a stage-2 step warm-started from
+    its logdir (`warm_start_runs`).  Returns (launches over one counted
+    step of (a), the card's pairs of (a)'s first batch for phase 11,
+    report)."""
     from dh3d_tpu_torch.train import (add_draws, make_train_step,
                                       prepare_batch, to_device)
     from dh3d_tpu_torch.train.__main__ import (build_config, parse_args,
@@ -1757,7 +1766,32 @@ def disk_phase(torch, T, work, train_launches, device):
             log(f"  the pair generation alone: {s['pairgen_ms']:.3f} ms of "
                 f"device time; profile of one step from disk (device ms): "
                 f"{s['profile_ms']}")
+    report["d warm start"] = warm_start_runs(torch, work, common)
     return launches, held, report
+
+
+def warm_start_runs(torch, work, common):
+    """Phase 10 (d): the curriculum's warm start from the port's own
+    checkpoints: one stage-1 step (`basic_config`) from disk, then one
+    stage-2 step (`detection_config`) with `--load` the stage-1 logdir,
+    which must restore every tensor stage 1 saved (stage 1's model is
+    stage 2's without the detection block)."""
+    from dh3d_tpu_torch.nn.convert import warm_start_state_dict
+
+    flags = ["--device_pairgen", "--set", "morton_presorted=true",
+             "--steps", "1"]
+    stage1 = os.path.join(work, "run_d1")
+    s1 = disk_run(torch, "d stage 1", ["--cfg", "basic_config", *common,
+                                       *flags, "--logdir", stage1], 20)
+    s2 = disk_run(torch, "d stage 2 from the stage-1 logdir", [
+        "--cfg", "detection_config", *common, *flags, "--load", stage1,
+        "--logdir", os.path.join(work, "run_d2")], 20)
+    saved = len(warm_start_state_dict(stage1))
+    assert s2["restored"] == saved > 0, (s2["restored"], saved)
+    log(f"  stage 2 warm-started from the stage-1 logdir: restored "
+        f"{s2['restored']} of the {saved} tensors stage 1 saved")
+    return {"restored": s2["restored"], "saved": saved,
+            "stage1_step_ms": s1["step_ms"], "stage2_step_ms": s2["step_ms"]}
 
 
 def card_vs_cpu_pairgen(torch, device, held):
@@ -2085,12 +2119,10 @@ def morton_sorted(torch, T, points):
                         perm[..., None].expand(-1, -1, 3)).contiguous()
 
 
-def window_phase(torch, T, kernels, device, cases):
-    """Phase 14 (a): kernel H against its plain version, bit for bit, at
-    the legacy path's shapes, each with its device time, bound (8 f32
-    operations for the d2 of every pair of each band: H computes them all),
-    A's instruction floor over those pairs and its launches a call; then
-    every tile's band start read back from H against the formula."""
+def window_cases(torch, T, device):
+    """Kernel H's shapes on the legacy path, (label, query, keys, k,
+    window): the legacy forward's and extraction's self kNN, and a level
+    that windows (a 32768-point scan's 4096 points: its kNN and 3-NN)."""
     from dh3d_tpu_torch.entry import entry_points
 
     fwd = morton_sorted(torch, T, torch.from_numpy(
@@ -2102,21 +2134,32 @@ def window_phase(torch, T, kernels, device, cases):
     ).to(device))
     big_sub = T.gather_point(big, torch.sort(
         T.farthest_point_sample(big, 4096), dim=-1).values).contiguous()
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    for label, q, keys, k, w in (
-            ("self k=8 W=512 [20,8192] (legacy forward)", fwd, fwd, 8, 512),
+    return [("self k=8 W=512 [20,8192] (legacy forward)", fwd, fwd, 8, 512),
             ("self k=8 W=512 [1,16384] (legacy extraction)", lidar, lidar,
              8, 512),
             ("self k=8 W=512 [1,4096] (a windowed level)", big_sub, big_sub,
              8, 512),
             ("cross k=3 W=256 [1,32768]->[1,4096] (its 3-NN)", big, big_sub,
-             3, 256)):
+             3, 256)]
+
+
+def window_phase(torch, T, kernels, device, cases):
+    """Phase 14 (a): kernel H against its plain version, bit for bit, at
+    the legacy path's shapes (`window_cases`) with its plan (lanes a
+    query), each with its device time, bound (8 f32 operations for the d2
+    of every pair of each band: H computes them all), A's instruction
+    floor over those pairs and its launches a call; then every tile's band
+    start read back from H against the formula."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for label, q, keys, k, w in window_cases(torch, T, device):
         pairs = q.shape[0] * q.shape[1] * w
         call = partial(T.knn_window, q, keys, k, w)
         row = measure_case(torch, cases, "knn_window", label, call,
                            partial(T.knn_window_plain, q, keys, k, w),
                            same_knn, (q, keys), 8 * pairs,
-                           info={"k": k, "window": w, "pairs": pairs})
+                           info={"k": k, "window": w, "pairs": pairs,
+                                 "plan": T.window_plan(k, w, q.shape[0]
+                                                       * q.shape[1])})
         before = kernels.KNN_WINDOW.launches
         call()
         torch.cuda.synchronize()
@@ -2505,7 +2548,7 @@ def main():
     extract_report["card_vs_cpu"] = card_vs_cpu_extraction(torch, T, device)
 
     log("phase 10: training from disk, stage 2 [20, 8192] and stage 3 "
-        "[24, 8192]")
+        "[24, 8192]; a stage 1 -> 2 warm start")
     with tempfile.TemporaryDirectory() as work:
         disk_launches, held, disk_report = disk_phase(
             torch, T, work, train_launches, device)
@@ -2617,6 +2660,20 @@ def ab_run(root, label, out_dir):
             "sha256": "/".join(sha(t) for t in outs),
             "call_ms": device_ms(torch, c["call"]), "plan": c["plan"]}
         log(f"  {c['name']} {c['label']:42s} {r}")
+    if hasattr(T, "knn_window"):  # kernel H, as the tree's path calls it
+        for case, q, keys, k, w in window_cases(torch, T, device):
+            call = partial(T.knn_window, q, keys, k, w)
+            out = call()
+            again = call()
+            assert all(map(torch.equal, out, again)), f"{case}: runs differ"
+            plan = (T.window_plan(k, w, q.shape[0] * q.shape[1])
+                    if hasattr(T, "window_plan") else None)
+            report["cases"][f"knn_window {case}"] = r = {
+                "input_sha256": sha(torch.cat([q.flatten(),
+                                               keys.flatten()])),
+                "sha256": "/".join(sha(t) for t in out),
+                "call_ms": device_ms(torch, call), "plan": plan}
+            log(f"  knn_window {case:42s} {r}")
     for c in forward_cases(torch, T, device):
         out = c["call"]()
         for a, b in zip(out, c["call"]()):
@@ -2720,7 +2777,7 @@ def forward_report(torch, fn, points, sha, clouds):
 def sweep_run(out_dir):
     """Every plan kernels G and B take at each shape of `knn_fps_cases`
     (A and G's plans at A's shapes; output checked equal to the plain
-    version) and kernels C and D at
+    version), kernel H at each of `window_cases` and kernels C and D at
     each shape of `forward_cases` (equal to the path's), device time;
     written to OUT/sweep.json."""
     import torch
@@ -2767,6 +2824,20 @@ def sweep_run(out_dir):
             log(f"  {c['name']} {c['label']:42s} G's best {g_best} "
                 f"{row['g_ms'][g_best]:.4f} ms; G's plan {c['g_plan']} "
                 f"{row['g_ms'].get(str(c['g_plan']))}")
+        report["cases"].append(row)
+    from dh3d_tpu_torch.ops.knn import WINDOW_LANES
+
+    for label, q, keys, k, w in window_cases(torch, T, device):
+        ref = T.knn_window_plain(q, keys, k, w)
+        own = T.window_plan(k, w, q.shape[0] * q.shape[1])
+        row = {"name": "knn_window", "label": label, "plan": own, "ms": {}}
+        for lanes in WINDOW_LANES:
+            fn = partial(T.knn_window, q, keys, k, w, plan=lanes)
+            same_knn(fn(), ref)
+            row["ms"][str(lanes)] = device_ms(torch, fn)
+        best = min(row["ms"], key=row["ms"].get)
+        log(f"  knn_window {label:42s} best {best} {row['ms'][best]:.4f} "
+            f"ms; the plan's {own} {row['ms'][str(own)]:.4f}; {row['ms']}")
         report["cases"].append(row)
     for c in forward_cases(torch, T, device):
         if c.get("nan") or ("+" in c["label"] and "+id +slot" not in

@@ -138,16 +138,20 @@ def library() -> ctypes.CDLL:
 class Kernel:
     """One kernel's C entry point and the count of its launches."""
 
-    def __init__(self, name: str, symbol: str, argtypes):
+    def __init__(self, name: str, symbol: str, argtypes, defaults=()):
         self.name = name
         self.symbol = symbol
         self.argtypes = list(argtypes) + [_P]  # + the stream
+        self.defaults = tuple(defaults)  # of the last arguments (a plan)
         self.launches = 0
 
     def launch(self, device: torch.device, *args) -> None:
-        """Launch on `device`'s current stream.  Raises ValueError when the
-        entry point refuses the arguments, RuntimeError on another CUDA
-        error."""
+        """Launch on `device`'s current stream; arguments left off the end
+        take `defaults`.  Raises ValueError when the entry point refuses
+        the arguments, RuntimeError on another CUDA error."""
+        missing = len(self.argtypes) - 1 - len(args)
+        if 0 < missing <= len(self.defaults):
+            args += self.defaults[len(self.defaults) - missing:]
         lib = library()
         fn = getattr(lib, self.symbol)
         with torch.cuda.device(device):
@@ -171,8 +175,10 @@ KNN_TOPK = Kernel("knn_topk", "dh3d_knn_topk", [_P] * 5 + [_I] * 5)
 # G's pre-pass alone, for timing it; not a kernel of its own (G launches it)
 KNN_TOPK_PREPASS = Kernel("knn_topk_prepass", "dh3d_knn_topk_prepass",
                           [_P, _P, _P, _I, _I, _I])
-# H: sizes, k, then the band's width (window)
-KNN_WINDOW = Kernel("knn_window", "dh3d_knn_window", [_P] * 4 + [_I] * 5)
+# H: sizes, k, the band's width (window), then the plan (lanes a query;
+# one when left off)
+KNN_WINDOW = Kernel("knn_window", "dh3d_knn_window", [_P] * 4 + [_I] * 6,
+                    defaults=(1,))
 FPS = Kernel("fps", "dh3d_fps", [_P, _P, _I, _I, _I, _I, _I])
 # C and D: sizes, then the plan (vec, lanes, passes)
 WEIGHTED_SUM = Kernel("weighted_sum", "dh3d_weighted_sum",

@@ -10,12 +10,20 @@ by `scripts/package_checkpoint.py`: "params/<module path>/<name>",
   - every other array keeps its name and layout;
   - "step" is read and dropped.
 `load_flax` is strict: an array the model does not take, a parameter no
-array fills, or a shape mismatch raises.  `smart_init` is the partial load
-of a warm start.
+array fills, or a shape mismatch raises.
+
+A warm start (`train --load`) reads any of three inputs into a state dict
+of the port's names (`warm_start_state_dict`): a Flax `<stem>.npz`, a
+checkpoint `step_*.pt` of the port's trainer, or a training logdir of the
+port (its newest `ckpt/step_*.pt`, `latest_checkpoint`).  `load_partial`
+is its one partial-load rule, which `smart_init` (a Flax dict) and
+`warm_start` (a path) share.
 """
 
 from __future__ import annotations
 
+import glob
+import os
 from typing import Mapping
 
 import numpy as np
@@ -63,15 +71,55 @@ def load_npz(path: str) -> dict:
         return {k: z[k] for k in z.files}
 
 
-def smart_init(model: nn.Module, flat: Mapping[str, np.ndarray]) -> int:
+def latest_checkpoint(logdir: str) -> str:
+    """The newest `<logdir>/ckpt/step_*.pt` of the port's trainer (the
+    step is zero-padded, so the names sort by step)."""
+    found = sorted(glob.glob(os.path.join(logdir, "ckpt", "step_*.pt")))
+    if not found:
+        raise FileNotFoundError(f"no checkpoint under {logdir}/ckpt")
+    return found[-1]
+
+
+def warm_start_state_dict(path: str) -> dict:
+    """A warm start's tensors, by the port's state-dict names, on the CPU,
+    from a Flax `<stem>.npz` (`state_dict_from_flax`), a checkpoint `.pt`
+    of the port's trainer (its "model" entry) or a training logdir of the
+    port (its newest checkpoint).  Raises ValueError for anything else."""
+    if os.path.isdir(path):
+        path = latest_checkpoint(path)
+    if path.endswith(".npz") and os.path.isfile(path):
+        return state_dict_from_flax(load_npz(path))
+    if path.endswith(".pt") and os.path.isfile(path):
+        ck = torch.load(path, map_location="cpu", weights_only=True)
+        if isinstance(ck, dict) and isinstance(ck.get("model"), dict):
+            return ck["model"]
+    raise ValueError(
+        f"cannot warm-start from {path!r}: give a Flax <stem>.npz, a "
+        "checkpoint step_*.pt of this port's trainer, or its training "
+        "logdir (config.json + ckpt/step_*.pt)")
+
+
+def load_partial(model: nn.Module, state_dict: Mapping[str, torch.Tensor]
+                 ) -> int:
     """Partial load, the SmartInit(ignore_mismatch=True) warm start of the
-    curriculum (`trainer.py:281-306`): every array of `flat` whose name the
-    model has, with the same shape, is loaded; the others are skipped and
-    the model keeps its own values there.  Parameters and BN statistics
-    both load, as the reference's SmartInit restores every variable.
-    Returns the number of arrays loaded."""
+    curriculum (`trainer.py:281-306`): every tensor whose name the model
+    has, with the same shape, is loaded; the others are skipped and the
+    model keeps its own values there.  Parameters and BN statistics both
+    load, as the reference's SmartInit restores every variable.  Returns
+    the number of tensors loaded."""
     own = model.state_dict()
-    take = {name: t for name, t in state_dict_from_flax(flat).items()
+    take = {name: t for name, t in state_dict.items()
             if name in own and own[name].shape == t.shape}
     model.load_state_dict(take, strict=False)
     return len(take)
+
+
+def smart_init(model: nn.Module, flat: Mapping[str, np.ndarray]) -> int:
+    """`load_partial` of a Flax dict {flax_path: array}."""
+    return load_partial(model, state_dict_from_flax(flat))
+
+
+def warm_start(model: nn.Module, path: str) -> int:
+    """`load_partial` of `warm_start_state_dict(path)`: the model only,
+    never an optimizer state or a step."""
+    return load_partial(model, warm_start_state_dict(path))

@@ -5,9 +5,10 @@ tensors): `knn` (and `knn_bruteforce`, `knn_bruteforce_pairwise`,
 `three_nn`, `knn_point` on it; kernel G's launch plan `topk_plan` and its
 pre-pass alone, `topk_prepass`), `knn_window` (the legacy Morton-band
 kNN, kernel H: `knn_bruteforce` and `three_nn` take it when given a
-window; its band starts `win_start`), `farthest_point_sample` (launch
-plan `fps_plan`), `weighted_sum` (and `conv_pointset`, `flex_avg`,
-`three_interpolate` on it) with its backward `weighted_sum_backward`,
+window; its band starts `win_start`, its launch plan `window_plan`),
+`farthest_point_sample` (launch plan `fps_plan`), `weighted_sum` (and
+`conv_pointset`, `flex_avg`, `three_interpolate` on it) with its backward
+`weighted_sum_backward`,
 `flex_moments` (and `flex_conv` on it) with its backward
 `flex_moments_backward` (and `flex_deconv` on it), `neighbor_max` (and
 `flex_pool`) with its backward `neighbor_max_backward` (launch plan of
@@ -47,6 +48,7 @@ from dh3d_tpu_torch.ops.knn import (
     topk_plan,
     topk_prepass,
     win_start,
+    window_plan,
 )
 from dh3d_tpu_torch.ops.morton import morton_codes, morton_perm
 from dh3d_tpu_torch.ops.neighborhood import (
@@ -90,4 +92,5 @@ __all__ = [
     "query_ball_point2", "row_plan", "select_top_k", "subsample",
     "three_interpolate", "three_nn", "weighted_sum", "weighted_sum_backward",
     "weighted_sum_backward_plain", "weighted_sum_plain", "win_start",
+    "window_plan",
 ]

@@ -1,7 +1,7 @@
 """Exact k nearest neighbours: kernels A (`csrc/knn.cu`, k <= 7) and G
 (`csrc/knn_topk.cu`, 8 <= k <= 128) and their plain version; the windowed
-kNN of the legacy Morton-band mode: kernel H (`csrc/knn_window.cu`) and
-its plain version.
+kNN of the legacy Morton-band mode: kernel H (`csrc/knn_window.cu`), its
+launch plan `window_plan` and its plain version.
 
 Counterpart of `dh3d_tpu/ops/knn.py` and of the Pallas kernels
 `knn_pallas._knn_kernel_banded` (3-NN over the whole key table; a window
@@ -43,6 +43,7 @@ _CHUNK_ELEMS = 1 << 23  # bounds the plain version's [B, chunk, Nk] d2 block
 TILE_Q = 256  # queries a band shares (`knn_banded`'s tile_q)
 WINDOW_ALIGN = 128  # a band starts on a multiple of it (`_win_start`)
 WINDOW_MAX_K = 32  # kernel H's largest k (`dh3d_knn_window`)
+WINDOW_LANES = (1, 2, 4, 8, 16, 32)  # kernel H's plans: lanes a query
 
 
 def topk_plan(k: int) -> int:
@@ -210,8 +211,25 @@ def knn_window_plain(query: torch.Tensor, keys: torch.Tensor, k: int,
             torch.cat(dist, 1).reshape(B, N, k))
 
 
+def window_plan(k: int, window: int, queries: int) -> int:
+    """Kernel H's plan: the lanes that search one query's band together
+    (each a strided share of it, merged at the end), for `queries` = B * N
+    queries, k neighbours and a band of `window` keys.  4 lanes, and more
+    while the queries times the lanes stay under 2^16 threads and each lane
+    keeps 16 keys or more.  A sweep of every plan at the path's shapes on
+    an H100 (`chip_smoke.py --sweep`; PERF.md) chose it: 4 lanes were the
+    fastest at [20,8192] and [1,16384] (k=8, W=512) and at the 3-NN W=256
+    [1,32768]->[1,4096], 16 at [1,4096]; k did not change the order at the
+    path's k of 3 and 8."""
+    lanes = 4
+    while lanes < 32 and queries * lanes < (1 << 16) \
+            and window // (2 * lanes) >= 16:
+        lanes *= 2
+    return lanes
+
+
 def knn_window(query: torch.Tensor, keys: torch.Tensor, k: int,
-               window: int):
+               window: int, plan: int | None = None):
     """The k nearest keys of every query within its tile's Morton band:
     the W < M case of `knn_pallas._knn_kernel_banded`, unpacked (exact d2,
     as `knn_banded(..., packed=False)`).
@@ -224,7 +242,9 @@ def knn_window(query: torch.Tensor, keys: torch.Tensor, k: int,
     table, d2 [B, N, k] float32), ascending by (d2, index): d2 as `knn`
     builds it, the lowest index first among equal distances.
 
-    CPU tensors take the plain version; CUDA tensors launch kernel H."""
+    CPU tensors take the plain version; CUDA tensors launch kernel H with
+    `plan` lanes a query (one of `WINDOW_LANES`; `window_plan`'s when
+    None).  The plan changes the search, never the result."""
     kernels.check(query, "query", torch.float32, (None, None, 3))
     B, N = query.shape[:2]
     kernels.check(keys, "keys", torch.float32, (B, None, 3))
@@ -241,7 +261,8 @@ def knn_window(query: torch.Tensor, keys: torch.Tensor, k: int,
     dev = query.device
     idx = torch.empty(B, N, k, dtype=torch.int64, device=dev)
     d2 = torch.empty(B, N, k, dtype=torch.float32, device=dev)
+    lanes = window_plan(k, window, B * N) if plan is None else plan
     kernels.KNN_WINDOW.launch(dev, query.data_ptr(), keys.data_ptr(),
                               idx.data_ptr(), d2.data_ptr(), B, N, M, k,
-                              window)
+                              window, lanes)
     return idx, d2

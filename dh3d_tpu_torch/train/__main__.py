@@ -3,7 +3,8 @@
 
     python -m dh3d_tpu_torch.train --cfg detection_config \
         (--data_basedir DIR | --synthetic) [--device_pairgen] \
-        [--steps N] [--logdir DIR] [--load FLAX.npz] [--resume CKPT.pt] \
+        [--steps N] [--logdir DIR] [--load FLAX.npz|CKPT.pt|LOGDIR] \
+        [--resume CKPT.pt] \
         [--seed S] [--set key=value ...] [--num_points N] [--batch_size B] \
         [--device cuda|cpu]
 
@@ -15,14 +16,22 @@ generation and (2000 + seed, step) for the augmentation: the counterpart
 of `jax.random.fold_in(key, step)` (`train.py:202-212`), so a resumed run
 draws what an unbroken run draws at that step.
 
+`--load` warm-starts the model from the previous stage of the curriculum:
+a Flax `<stem>.npz` (the shipped `models/`), a checkpoint `step_*.pt` of
+this trainer, or its training logdir (the newest checkpoint there).  Every
+tensor whose name and shape the model has loads, parameters and BN
+statistics both; the optimizer and the step start afresh, as `train.py
+--load` does.  `--resume` is the exact resume of one run.
+
 Writes `config.json` and `metrics.jsonl` into the logdir, prints the
 metrics every 50 steps and at the last step, and saves a checkpoint every
 `savemodel_every_k_steps` steps and at the end (`<logdir>/ckpt/`).
-`main` returns a summary: the steps, the host-clock seconds of the loop,
-each step's wait in `next(batches)`, its time on CUDA events (on a CUDA
-device) and its kernel launches, and the last metrics.  `--device`
-defaults to cuda and raises when there is no CUDA device; the CPU (the
-kernels' plain versions) runs only when asked for.
+`main` returns a summary: the tensors a warm start restored, the steps,
+the host-clock seconds of the loop, each step's wait in `next(batches)`,
+its time on CUDA events (on a CUDA device) and its kernel launches, and
+the last metrics.  `--device` defaults to cuda and raises when there is
+no CUDA device; the CPU (the kernels' plain versions) runs only when asked
+for.
 """
 
 from __future__ import annotations
@@ -37,7 +46,7 @@ import torch
 from dh3d_tpu_torch import config as cfglib
 from dh3d_tpu_torch import kernels
 from dh3d_tpu_torch.data.prefetch import ThreadedPrefetcher
-from dh3d_tpu_torch.nn.convert import load_npz, smart_init
+from dh3d_tpu_torch.nn.convert import warm_start
 from dh3d_tpu_torch.train import trainer
 from dh3d_tpu_torch.train.data import real_batches
 from dh3d_tpu_torch.train.synthetic import synthetic_batches
@@ -49,8 +58,10 @@ def parse_args(argv=None):
                    help="basic_config | detection_config | global_config")
     p.add_argument("--logdir", default=None)
     p.add_argument("--load", default=None,
-                   help="Flax .npz checkpoint for a warm start (partial "
-                        "load by name and shape)")
+                   help="warm start from FLAX.npz, a CKPT.pt of this "
+                        "trainer or its LOGDIR (newest ckpt/step_*.pt): "
+                        "partial load by name and shape; fresh optimizer, "
+                        "step 0")
     p.add_argument("--resume", default=None,
                    help="checkpoint .pt of this trainer for exact resume")
     p.add_argument("--steps", type=int, default=2000)
@@ -122,19 +133,20 @@ def main(argv=None):
             batches = ThreadedPrefetcher(batches, depth=cfg.prefetch)
 
     state = trainer.init_state(cfg, args.seed, device)
+    restored = None
     if args.resume:
         trainer.restore_state(args.resume, state)
         print(f"resumed at step {state.step} from {args.resume}")
     elif args.load:
-        n = smart_init(state.model, load_npz(args.load))
-        print(f"warm start: restored {n} tensors from {args.load}")
+        restored = warm_start(state.model, args.load)
+        print(f"warm start: restored {restored} tensors from {args.load}")
     print(f"device: {device}; logdir: {logdir}")
 
     step_fn = trainer.make_train_step(cfg)
     every = int(cfg.savemodel_every_k_steps or 0)
     timed = device.type == "cuda"
-    summary = {"steps": args.steps, "wait_s": [], "launches": [],
-               "events": []}
+    summary = {"restored": restored, "steps": args.steps, "wait_s": [],
+               "launches": [], "events": []}
     t0 = time.time()
     start = state.step
     with open(os.path.join(logdir, "metrics.jsonl"), "a") as log:

@@ -29,7 +29,6 @@ draws made by two generators the caller passes (`add_draws`,
 from __future__ import annotations
 
 import dataclasses
-import glob
 import math
 import os
 from typing import Callable
@@ -42,7 +41,8 @@ from dh3d_tpu_torch.config import dotdict
 from dh3d_tpu_torch.data.augment import draw_augment, torch_augment
 from dh3d_tpu_torch.data.pairgen import draw_local_pairs, local_pairs
 from dh3d_tpu_torch.losses import compute_total_loss
-from dh3d_tpu_torch.nn.convert import load_flax, load_npz
+from dh3d_tpu_torch.nn.convert import (load_flax, load_npz,
+                                       warm_start_state_dict)
 from dh3d_tpu_torch.nn.model import DH3D, frozen_groups
 
 # config keys of the JAX trainer that this port does not run yet (the
@@ -269,13 +269,6 @@ def restore_state(path: str, state: TrainState) -> TrainState:
     return state
 
 
-def _latest_checkpoint(logdir: str) -> str:
-    found = sorted(glob.glob(os.path.join(logdir, "ckpt", "step_*.pt")))
-    if not found:
-        raise FileNotFoundError(f"no checkpoint under {logdir}/ckpt")
-    return found[-1]
-
-
 def resolve_model(path: str):
     """A trained model from either surface: a training logdir of this port
     (config.json + ckpt/step_*.pt) or a packaged Flax `<stem>.npz` with its
@@ -289,8 +282,6 @@ def resolve_model(path: str):
     else:
         cfg = cfglib.load_config(os.path.join(path, "config.json"))
         model = DH3D(cfg)
-        ck = torch.load(_latest_checkpoint(path), map_location="cpu",
-                        weights_only=True)
-        model.load_state_dict(ck["model"])
+        model.load_state_dict(warm_start_state_dict(path))
     return cfg, model.eval()
 

@@ -25,8 +25,9 @@ inverse shared and built in the call, and on a second run.  The
 train step on the card is held to the CPU's as `chip_smoke.py` phase 7
 holds it (see there).  Kernel H (the Morton band's kNN, `knn_window`)
 must equal its plain version exactly, self and cross, at each list length
-it compiles, on random, integer-grid and duplicated clouds; its entry
-point refuses sizes itself; the legacy forward launches it once and
+it compiles and at every launch plan (lanes a query, `plan=`), on random,
+integer-grid and duplicated clouds, at the band's edges and with NaN
+rows; its entry point refuses sizes itself; the legacy forward launches it once and
 matches the CPU's.
 """
 
@@ -915,6 +916,14 @@ def _band_cloud(kind, n, g):
     return torch.gather(pos, 1, perm[..., None].expand(-1, -1, 3))
 
 
+def _same_window(out, ref):
+    """ids equal and d2 bit for bit, a NaN matching a NaN (the kernel
+    writes the canonical NaN, the plain version the CPU's)."""
+    assert torch.equal(out[0].cpu(), ref[0])
+    torch.testing.assert_close(out[1].cpu(), ref[1], rtol=0, atol=0,
+                               equal_nan=True)
+
+
 @pytest.mark.parametrize("kind", ["normal", "grid", "duplicates"])
 @pytest.mark.parametrize("n,m,window,k", [
     (1024, 1024, 512, 8), (2048, 2048, 512, 8), (1024, 1024, 128, 1),
@@ -922,20 +931,46 @@ def _band_cloud(kind, n, g):
     (4096, 512, 256, 3), (2048, 256, 256, 3), (1536, 1000, 384, 5)])
 def test_knn_window_equals_plain(device, kind, n, m, window, k):
     """Kernel H, self (n == m) and cross (the 3-NN's queries far more
-    than the keys), at each list length it compiles (k <= 4, 8, 16, 32):
-    ids and d2 bit for bit equal to the plain version, each id in its
-    tile's band, on two runs."""
+    than the keys), at each list length it compiles (k <= 4, 8, 16, 32),
+    at its own plan (`window_plan`) and at every plan forced (lanes a
+    query, `WINDOW_LANES`): ids and d2 bit for bit equal to the plain
+    version, each id in its tile's band, and the same on a second run."""
     g = torch.Generator().manual_seed(n + m + window + k)
     keys = _band_cloud(kind, m, g)
     query = keys if n == m else _band_cloud(kind, n, g)
     pidx, pd2 = T.knn_window_plain(query, keys, k, window)
     q, kd = query.contiguous().to(device), keys.contiguous().to(device)
-    idx, d2 = _counted(kernels.KNN_WINDOW, T.knn_window, q, kd, k, window)
-    assert torch.equal(idx.cpu(), pidx) and torch.equal(d2.cpu(), pd2)
-    again = T.knn_window(q, kd, k, window)
-    assert torch.equal(again[0], idx) and torch.equal(again[1], d2)
+    for plan in (None, *knn_ops.WINDOW_LANES):
+        idx, d2 = _counted(kernels.KNN_WINDOW, T.knn_window, q, kd, k,
+                           window, plan=plan)
+        assert torch.equal(idx.cpu(), pidx) and torch.equal(d2.cpu(), pd2), \
+            plan
+        again = T.knn_window(q, kd, k, window, plan=plan)
+        assert torch.equal(again[0], idx) and torch.equal(again[1], d2)
     start = T.win_start(n, m, window).repeat_interleave(256)[None, :, None]
     assert ((pidx >= start) & (pidx < start + window)).all()
+
+
+@pytest.mark.parametrize("n,m,window,k", [
+    (512, 512, 128, 32), (768, 768, 512, 8), (2048, 640, 128, 3),
+    (1024, 256, 256, 8)])
+def test_knn_window_band_edges_and_nan_rows(device, n, m, window, k):
+    """The band's edges at every plan: the first and the last tile, whose
+    starts clamp to 0 and to M - W (all of them where W = M); bound chunks
+    that reach past the band (32 lanes of k rows); W = 128 with k = 32.
+    A row of each cloud has a NaN coordinate: its d2 are NaN and order
+    after +inf, by index."""
+    g = torch.Generator().manual_seed(n + m + k)
+    keys = _band_cloud("normal", m, g)
+    query = keys.clone() if n == m else _band_cloud("normal", n, g)
+    keys[:, m // 3, 1] = float("nan")
+    query[:, 5, 0] = float("nan")
+    pidx, pd2 = T.knn_window_plain(query, keys, k, window)
+    assert torch.isnan(pd2).any()
+    q, kd = query.contiguous().to(device), keys.contiguous().to(device)
+    for plan in (None, *knn_ops.WINDOW_LANES):
+        _same_window(_counted(kernels.KNN_WINDOW, T.knn_window, q, kd, k,
+                              window, plan=plan), (pidx, pd2))
 
 
 def test_knn_window_entry_point_refuses_what_it_does_not_take(device):
