@@ -152,6 +152,27 @@ result line:
      sequences of 4 normalised lidar-like scans at N=8192: all four
      stages, every number finite, 0 < agreement <= 1 (the values are
      reported, not checked: the demo weights never saw such scans).
+ 15. the port's top-level entry points at full width: (a) the bench
+     (`dh3d_tpu_torch.bench.collect`, all seven workloads in this process,
+     its JSON line printed): every value finite and > 0; over one call,
+     `fwd_fast` launches what phase 4's forward launches, `train_fast`
+     A-G, `knn_ms` G alone, `flex_ms` C alone (its moments), and
+     `fwd_parity`, `train_pre` and `train_cps` A-D and G (their counts
+     logged); each workload's peak memory; `fwd_fast` beside phase 4's
+     clouds/s (reported: the weights differ); (b) the three-stage
+     curriculum script (`dh3d_tpu_torch.scripts.train_demo_curriculum`)
+     on phase 10's pool, one step a stage at the presets' widths: stage 2
+     restores every tensor stage 1 saved, stage 3 exactly stage 2's
+     `local_backbone.*` tensors, which stage 3 keeps bit for bit (frozen);
+     a second call with the same `--out` runs no stage; (c) the exporter
+     (`dh3d_tpu_torch.scripts.package_checkpoint`) on stage 3's logdir:
+     the keys and shapes of `models/demo_stage3.npz`; the export and the
+     logdir give the same forward bits at [4, 8192] on the card through
+     `train.resolve_model`; stage 2's export holds the same
+     `local_backbone` arrays; (d) `python -m dh3d_tpu_torch.train
+     --profile` over 16 synthetic `detection_config` steps at [20, 8192]:
+     the Chrome trace under `<logdir>/profile/` names the CUDA kernels of
+     A-G.
 The last three lines: the card, the kernels JSON, the ok JSON.
 
 To compare two trees of the port on one card (run them in turns: parent,
@@ -195,6 +216,7 @@ from.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -2447,6 +2469,280 @@ def budget_phase(work):
     return summary
 
 
+# ------------------- phase 15: the port's entry points -------------------
+
+# the CUDA functions of each kernel, as a profiler trace names them
+TRACE_KERNELS = {
+    "A knn": ("knn_kernel",),
+    "B fps": ("fps_kernel",),
+    "C weighted_sum / flex_moments": ("weighted_sum_loop_kernel",
+                                      "weighted_sum_unrolled_kernel"),
+    "D neighbor_max": ("neighbor_max_loop_kernel",
+                       "neighbor_max_unrolled_kernel"),
+    "E weighted_sum_backward / flex_moments_backward":
+        ("weighted_sum_bwd_kernel",),
+    "F neighbor_max_backward": ("neighbor_max_bwd_kernel",),
+    "G knn_topk": ("topk_search",),
+}
+
+
+def bench_phase(torch, kernels, device, fwd_launches, fwd_ms):
+    """Phase 15 (a): `dh3d_tpu_torch.bench`'s seven workloads in this
+    process.  Returns (launches over the whole bench, report)."""
+    from dh3d_tpu_torch import bench
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernels.reset_counts()
+    vals, reports = bench.collect(device)
+    torch.cuda.synchronize()
+    launches = kernels.counts()
+    seconds = time.perf_counter() - t0
+    line = bench.summary(vals, reports["fwd_fast"]["input_class"],
+                         bench.device_line(device))
+    log(json.dumps(line))
+    for name, v in vals.items():
+        assert math.isfinite(v) and v > 0, (name, v)
+    one = {name: r["launches"] for name, r in reports.items()}
+    assert one["fwd_fast"] == fwd_launches, (one["fwd_fast"], fwd_launches)
+    only = {"train_fast": TRAIN_KERNELS, "knn_ms": ("knn_topk",),
+            "flex_ms": ("flex_moments",)}
+    for name, launched in only.items():
+        for k, n in one[name].items():
+            assert (n > 0) == (k in launched), (name, k, n)
+    for name in ("fwd_parity", "train_pre", "train_cps"):
+        for k in FORWARD_KERNELS:
+            assert one[name][k] > 0, (name, k, one[name])
+    for name, r in reports.items():
+        assert math.isfinite(r["window"]) and r["window"] > 0, (name, r)
+        log(f"  {name}: {vals[name]:.3f} (median call), {r['window']:.3f} "
+            f"(window); one call launches "
+            f"{ {k: n for k, n in r['launches'].items() if n} }; median of "
+            f"{len(r['ms'])} calls {statistics.median(r['ms']):.3f} ms "
+            f"(spread {min(r['ms']):.3f}-{max(r['ms']):.3f}); peak "
+            f"{r['peak_mem_gb']:.2f} GB")
+    log(f"  fwd_fast {vals['fwd_fast']:.1f} clouds/s (random weights) "
+        f"beside phase 4's {20 / (fwd_ms / 1e3):.1f} (demo weights); the "
+        f"bench took {seconds:.1f} s")
+    split = morton_split(torch, device)
+    return launches, {"line": line, "seconds": seconds, "workloads": {
+        name: {"value": vals[name], **r} for name, r in reports.items()},
+        "morton_split": split}
+
+
+def kernel_group(name) -> str:
+    """The group of a CUDA kernel, by the name a profiler trace gives it:
+    A-G, the sort, gathers and scatters, GEMMs, or other."""
+    for group, keys in TRACE_KERNELS.items():
+        if any(key in name for key in keys):
+            return group.split()[0]
+    low = name.lower()
+    for group, keys in (("sort", ("sort",)),
+                        ("gather/scatter", ("index", "gather", "scatter")),
+                        ("gemm", ("gemm", "xmma", "cutlass"))):
+        if any(key in low for key in keys):
+            return group
+    return "other"
+
+
+def device_ms_by_kernel(torch, call, work) -> dict:
+    """{kernel name: device ms} of one call of `call()`, from a profiler
+    Chrome trace (the same route as `train --profile`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    path = os.path.join(work, "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    by_name = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+    return by_name
+
+
+def morton_split(torch, device) -> dict:
+    """Where the Morton order's time goes, by device time of each kernel
+    group in one profiled call of the bench's `fwd_fast` against
+    `fwd_parity` and of `train_fast` against `train_pre` (the same step
+    on clouds sorted on the host), and the sort's own pieces timed alone
+    at the forward's shapes: `morton_perm` with the gather of the
+    points, and the un-permute of the eval outputs."""
+    from dh3d_tpu_torch import bench
+    from dh3d_tpu_torch.nn.model import DH3D, _take_rows
+    from dh3d_tpu_torch.ops.morton import morton_perm
+    from dh3d_tpu_torch.train import (init_state, make_eval_step,
+                                      make_train_step, to_device)
+
+    pts, _ = bench.bench_clouds(20, 8192)
+    points = torch.from_numpy(pts).to(device)
+    out = {"pairs": {}, "alone_ms": {}}
+    with tempfile.TemporaryDirectory() as work:
+        for fast, plain in (("fwd_fast", "fwd_parity"),
+                            ("train_fast", "train_pre")):
+            groups = {}
+            for name in (fast, plain):
+                if name.startswith("fwd"):
+                    cfg = bench.forward_config(8192, name == "fwd_fast")
+                    torch.manual_seed(0)
+                    model = DH3D(cfg).to(device)
+                    step = make_eval_step(cfg, model)
+                    call = (lambda step=step: step({"points": points}))
+                    outs = call()
+                else:
+                    pre = name == "train_pre"
+                    cfg = bench.train_config(10, 8192, 512, True, pre)
+                    state = init_state(cfg, 0, device)
+                    batch = to_device(bench.train_batch(10, 8192, 512, pre),
+                                      device)
+                    step = make_train_step(cfg)
+                    call = (lambda step=step, state=state, batch=batch:
+                            step(state, batch))
+                ms = device_ms_by_kernel(torch, call, work)
+                g = groups[name] = {"total": sum(ms.values())}
+                for k, v in ms.items():
+                    g[kernel_group(k)] = g.get(kernel_group(k), 0.0) + v
+                del call, step
+                gc.collect()
+                torch.cuda.empty_cache()
+            keys = sorted(set(groups[fast]) | set(groups[plain]))
+            out["pairs"][f"{fast} - {plain}"] = {
+                k: groups[fast].get(k, 0.0) - groups[plain].get(k, 0.0)
+                for k in keys}
+            out["pairs"][f"{fast} - {plain}"]["groups"] = groups
+    perm, inv = morton_perm(points)
+    dense = [v for v in outs.values() if v.is_floating_point()
+             and v.shape[:2] == points.shape[:2]]
+    out["alone_ms"] = {
+        "morton_perm + gather of the points": device_ms(
+            torch, lambda: _take_rows(points, morton_perm(points)[0])),
+        f"un-permute of {len(dense)} eval outputs": device_ms(
+            torch, lambda: [_take_rows(v, inv) for v in dense])}
+    for pair, d in out["pairs"].items():
+        log(f"  {pair}, device ms by kernel group in one call: "
+            f"{ {k: round(v, 3) for k, v in d.items() if k != 'groups'} }")
+    log(f"  the sort's pieces alone at [20, 8192]: "
+        f"{ {k: round(v, 3) for k, v in out['alone_ms'].items()} }")
+    return out
+
+
+def curriculum_phase(torch, kernels, pool, work):
+    """Phase 15 (b): the curriculum script, one step a stage at the
+    presets' widths.  Returns (launches over the three stages, report,
+    (stage 2's logdir, stage 3's))."""
+    from dh3d_tpu_torch.nn.convert import warm_start_state_dict
+    from dh3d_tpu_torch.scripts.train_demo_curriculum import main as run
+
+    argv = ["--pool", pool, "--out", os.path.join(work, "curriculum"),
+            "--steps", "1", "1", "1"]
+    t0 = time.perf_counter()
+    kernels.reset_counts()
+    summaries = run(argv)
+    torch.cuda.synchronize()
+    launches = kernels.counts()
+    seconds = time.perf_counter() - t0
+    logdirs = [os.path.join(work, "curriculum", "seed0", f"stage{n}")
+               for n in (1, 2, 3)]
+    s1, s2, s3 = (summaries[f"seed0/stage{n}"] for n in (1, 2, 3))
+    for n, s in enumerate((s1, s2, s3), start=1):
+        assert all(map(math.isfinite, s["metrics"].values())), s["metrics"]
+        log(f"  stage {n}: restored {s['restored']}; step "
+            f"{s['step_ms'][0]:.2f} ms (CUDA events); wait in "
+            f"next(batches) {1e3 * s['wait_s'][0]:.1f} ms; launches "
+            f"{ {k: v for k, v in s['launches'][0].items() if v} }")
+    saved1, saved2, saved3 = map(warm_start_state_dict, logdirs)
+    assert s2["restored"] == len(saved1) > 0, (s2["restored"], len(saved1))
+    local = {k for k in saved2 if k.startswith("local_backbone.")}
+    common = {k for k, t in saved2.items()
+              if k in saved3 and saved3[k].shape == t.shape}
+    assert s3["restored"] == len(local) and common == local, \
+        (s3["restored"], len(local), sorted(common ^ local))
+    for k in local:
+        assert torch.equal(saved3[k], saved2[k]), k
+    again = run(argv)
+    assert all(v is None for v in again.values()), again
+    log(f"  stage 2 restored all {len(saved1)} tensors stage 1 saved; "
+        f"stage 3 the {len(local)} local_backbone tensors of stage 2, "
+        f"which it kept bit for bit; a second call ran no stage; "
+        f"{seconds:.1f} s")
+    report = {"seconds": seconds, "restored": [s2["restored"],
+                                               s3["restored"]],
+              "step_ms": [s["step_ms"][0] for s in (s1, s2, s3)],
+              "wait_ms": [1e3 * s["wait_s"][0] for s in (s1, s2, s3)]}
+    return launches, report, logdirs[1:]
+
+
+def export_phase(torch, device, work, stage2, stage3):
+    """Phase 15 (c): the exporter on the curriculum's stages 2 and 3."""
+    from dh3d_tpu_torch.entry import entry_points
+    from dh3d_tpu_torch.eval.extract import make_forward
+    from dh3d_tpu_torch.nn.convert import load_npz
+    from dh3d_tpu_torch.scripts.package_checkpoint import main as export
+    from dh3d_tpu_torch.train import resolve_model
+
+    stem3 = os.path.join(work, "export", "stage3")
+    flat3 = export(["--ckpt", stage3, "--out", stem3])
+    ref = load_npz("models/demo_stage3.npz")
+    assert set(flat3) == set(ref), sorted(set(flat3) ^ set(ref))
+    for k, v in ref.items():
+        assert flat3[k].shape == v.shape and flat3[k].dtype == v.dtype, k
+    assert os.path.isfile(stem3 + ".config.json")
+    points = torch.from_numpy(entry_points(4, 8192, seed=3)).to(device)
+    outs = []
+    for src in (stage3, stem3):
+        cfg, model = resolve_model(src)
+        outs.append(make_forward(cfg, model.to(device))(points))
+    a, b = outs
+    assert set(a) == set(b)
+    for k in a:
+        assert torch.isfinite(a[k].float()).all(), k
+        assert torch.equal(a[k], b[k]), k
+    flat2 = export(["--ckpt", stage2, "--out", os.path.join(
+        work, "export", "stage2")])
+    local3 = {k for k in flat3 if k.split("/")[1:2] == ["local_backbone"]}
+    local2 = {k for k in flat2 if k.split("/")[1:2] == ["local_backbone"]}
+    assert local2 == local3, sorted(local2 ^ local3)
+    for k in local3:
+        assert np.array_equal(flat2[k], flat3[k]), k
+    log(f"  stage 3 exported: {len(flat3)} arrays, the keys and shapes of "
+        f"models/demo_stage3.npz; export and logdir give the same forward "
+        f"bits at [4, 8192]; stage 2's export holds the same "
+        f"{len(local3)} local_backbone arrays")
+    return {"arrays": len(flat3), "local_backbone_arrays": len(local3)}
+
+
+def profile_phase(work):
+    """Phase 15 (d): `train --profile` over 16 synthetic steps; the trace
+    names every kernel of the step."""
+    from dh3d_tpu_torch.train.__main__ import main as train_main
+
+    logdir = os.path.join(work, "profiled")
+    s = train_main(["--cfg", "detection_config", "--synthetic", "--steps",
+                    "16", "--profile", "--logdir", logdir])
+    path = s["profile"]
+    assert path and os.path.dirname(path) == os.path.join(logdir, "profile")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    missing = [k for k, keys in TRACE_KERNELS.items()
+               if not any(key in n for n in names for key in keys)]
+    assert not missing, (missing, sorted(names)[:50])
+    size_mb = os.path.getsize(path) / 1e6
+    step_ms = statistics.median(s["step_ms"][1:])
+    log(f"  {os.path.relpath(path, logdir)}: {size_mb:.1f} MB, "
+        f"{len(names)} distinct CUDA kernels, A-G among them; step "
+        f"{step_ms:.2f} ms (median of steps 1-15, profiled ones included)")
+    return {"trace_mb": size_mb, "cuda_kernels": len(names),
+            "step_ms_median": step_ms}
+
+
 def main():
     import torch
 
@@ -2549,9 +2845,9 @@ def main():
 
     log("phase 10: training from disk, stage 2 [20, 8192] and stage 3 "
         "[24, 8192]; a stage 1 -> 2 warm start")
-    with tempfile.TemporaryDirectory() as work:
-        disk_launches, held, disk_report = disk_phase(
-            torch, T, work, train_launches, device)
+    train_work = tempfile.TemporaryDirectory()  # its pool serves phase 15
+    disk_launches, held, disk_report = disk_phase(
+        torch, T, train_work.name, train_launches, device)
 
     log("phase 11: card vs CPU pair generation [2, 8192], 64 anchors")
     disk_report["card_vs_cpu_pairgen"] = card_vs_cpu_pairgen(torch, device,
@@ -2586,6 +2882,25 @@ def main():
     with tempfile.TemporaryDirectory() as work:
         legacy_report["error_budget"] = budget_phase(work)
 
+    log("phase 15: the entry points: bench, curriculum, exporter, "
+        "--profile")
+    t15 = time.perf_counter()
+    log(" (a) the bench, seven workloads")
+    bench_launches, bench_report = bench_phase(torch, kernels, device,
+                                               fwd_launches, fwd_ms)
+    with tempfile.TemporaryDirectory() as work:
+        log(" (b) the curriculum, one step a stage, on phase 10's pool")
+        curriculum_launches, curriculum_report, stages = curriculum_phase(
+            torch, kernels, os.path.join(train_work.name, "pool"), work)
+        log(" (c) the exporter")
+        curriculum_report["export"] = export_phase(torch, device, work,
+                                                   *stages)
+        log(" (d) train --profile, 16 steps [20, 8192]")
+        curriculum_report["profile"] = profile_phase(work)
+    train_work.cleanup()
+    entry_seconds = time.perf_counter() - t15
+    log(f"  phase 15: {entry_seconds:.1f} s")
+
     # `launches`: the count from this slice's path (the legacy forward)
     # for H, from the relocalisation for the other kernels it runs, from
     # the train step for E and F
@@ -2604,7 +2919,9 @@ def main():
                                  "extract_local": extract_launches[name],
                                  "train_from_disk": disk_launches[name],
                                  "relocalize": reloc_launches[name],
-                                 "legacy_forward": legacy_launches[name]},
+                                 "legacy_forward": legacy_launches[name],
+                                 "bench": bench_launches[name],
+                                 "curriculum": curriculum_launches[name]},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
@@ -2614,6 +2931,9 @@ def main():
     log(json.dumps({"train_from_disk": disk_report}))
     log(json.dumps({"relocalize": reloc_report}))
     log(json.dumps({"legacy": legacy_report}))
+    log(json.dumps({"entry_points": {"seconds": entry_seconds,
+                                     "bench": bench_report,
+                                     "curriculum": curriculum_report}}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": kernel_rows}))

@@ -10,7 +10,9 @@ by `scripts/package_checkpoint.py`: "params/<module path>/<name>",
   - every other array keeps its name and layout;
   - "step" is read and dropped.
 `load_flax` is strict: an array the model does not take, a parameter no
-array fills, or a shape mismatch raises.
+array fills, or a shape mismatch raises.  `flax_from_state_dict` is the
+inverse: a model's tensors as that flat dict (what the port's exporter,
+`scripts/package_checkpoint.py`, writes).
 
 A warm start (`train --load`) reads any of three inputs into a state dict
 of the port's names (`warm_start_state_dict`): a Flax `<stem>.npz`, a
@@ -29,6 +31,8 @@ from typing import Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from dh3d_tpu_torch.nn.layers import BatchNorm
 
 _IGNORED = ("step",)
 
@@ -54,6 +58,42 @@ def state_dict_from_flax(flat: Mapping[str, np.ndarray]) -> dict:
         t = torch.from_numpy(np.array(arr, dtype=np.float32))
         out[name] = t.T.contiguous() if transpose else t
     return out
+
+
+def flax_from_state_dict(model: nn.Module, step: int | None = None) -> dict:
+    """The inverse of `state_dict_from_flax`: `model`'s parameters and
+    buffers as {flax_path: f32 np.ndarray}, plus "step" as an int32
+    scalar when `step` is given (the committed files hold int32).
+      - parameters go under "params/", buffers under "batch_stats/";
+      - a BatchNorm (found by its class, not its name) gets its Flax "bn"
+        scope back: "...norm.scale" -> "params/.../norm/bn/scale",
+        "...norm.mean" -> "batch_stats/.../norm/bn/mean";
+      - an nn.Linear "weight" [out, in] becomes "kernel" [in, out];
+      - every other tensor keeps its name and layout.
+    Raises ValueError for a tensor the rule cannot name, one that
+    `torch_name` would not map back to where it came from."""
+    params = {name for name, _ in model.named_parameters()}
+    flat = {}
+    for name, t in model.state_dict().items():
+        owner, _, leaf = name.rpartition(".")
+        module = model.get_submodule(owner)
+        collection = "params" if name in params else "batch_stats"
+        path = owner.split(".") if owner else []
+        if isinstance(module, BatchNorm):
+            path.append("bn")
+        elif collection == "batch_stats":
+            raise ValueError(f"{name}: a buffer outside a BatchNorm")
+        transpose = isinstance(module, nn.Linear) and leaf == "weight"
+        path.append("kernel" if transpose else leaf)
+        key = "/".join([collection, *path])
+        if torch_name(key) != (name, transpose):
+            raise ValueError(f"{name}: no Flax path maps back to it "
+                             f"({key!r} reads as {torch_name(key)})")
+        arr = t.detach().to("cpu", torch.float32)
+        flat[key] = (arr.T if transpose else arr).contiguous().numpy()
+    if step is not None:
+        flat["step"] = np.asarray(step, np.int32)
+    return flat
 
 
 def load_flax(model: nn.Module, flat: Mapping[str, np.ndarray]) -> int:

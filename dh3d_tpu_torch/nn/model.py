@@ -198,3 +198,20 @@ class DH3D(nn.Module):
             outs["global_desc"] = l2_normalize(globaldesc, dim=-1,
                                                epsilon=1e-8)
         return outs
+
+
+def concat_tuple_clouds(cfg, anchor, pos=None, neg=None, otherneg=None):
+    """Flatten the Siamese tuple along the batch axis
+    (`dh3d_tpu/nn/model.py:306-319`, reference `core/model.py:139-146`):
+    [anchor | pos | neg | otherneg], pos and neg each reshaped to
+    [-1, num_points, 3]; a part is left out when it is None or the config
+    has none of it (num_pos, num_neg, other_neg)."""
+    n = cfg.num_points
+    parts = [anchor]
+    if pos is not None and cfg.num_pos > 0:
+        parts.append(pos.reshape(-1, n, 3))
+    if neg is not None and cfg.num_neg > 0:
+        parts.append(neg.reshape(-1, n, 3))
+    if otherneg is not None and cfg.other_neg:
+        parts.append(otherneg)
+    return torch.cat(parts, dim=0)

@@ -16,10 +16,12 @@ from dh3d_tpu_torch.train.trainer import (  # noqa: F401
     init_state,
     kernel_l2,
     lr_schedule,
+    make_eval_step,
     make_optimizer,
     make_train_step,
     param_labels,
     prepare_batch,
+    require_device,
     resolve_model,
     restore_state,
     save_checkpoint,

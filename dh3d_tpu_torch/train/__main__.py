@@ -4,7 +4,7 @@
     python -m dh3d_tpu_torch.train --cfg detection_config \
         (--data_basedir DIR | --synthetic) [--device_pairgen] \
         [--steps N] [--logdir DIR] [--load FLAX.npz|CKPT.pt|LOGDIR] \
-        [--resume CKPT.pt] \
+        [--resume CKPT.pt] [--profile] \
         [--seed S] [--set key=value ...] [--num_points N] [--batch_size B] \
         [--device cuda|cpu]
 
@@ -26,17 +26,25 @@ statistics both; the optimizer and the step start afresh, as `train.py
 Writes `config.json` and `metrics.jsonl` into the logdir, prints the
 metrics every 50 steps and at the last step, and saves a checkpoint every
 `savemodel_every_k_steps` steps and at the end (`<logdir>/ckpt/`).
+`--profile` traces steps 10-15 of the run with `torch.profiler` (CPU
+activity, and CUDA activity on a CUDA device) into a Chrome trace under
+`<logdir>/profile/`, as `train.py --profile` traces them with
+`jax.profiler`: the trace starts before step start + 10 and stops after
+step start + 15 once the device has finished, so a run of fewer than 16
+steps writes none.
+
 `main` returns a summary: the tensors a warm start restored, the steps,
 the host-clock seconds of the loop, each step's wait in `next(batches)`,
-its time on CUDA events (on a CUDA device) and its kernel launches, and
-the last metrics.  `--device` defaults to cuda and raises when there is
-no CUDA device; the CPU (the kernels' plain versions) runs only when asked
-for.
+its time on CUDA events (on a CUDA device) and its kernel launches, the
+last metrics, and the trace file (`profile`, None without one).
+`--device` defaults to cuda and raises when there is no CUDA device; the
+CPU (the kernels' plain versions) runs only when asked for.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -64,6 +72,9 @@ def parse_args(argv=None):
                         "step 0")
     p.add_argument("--resume", default=None,
                    help="checkpoint .pt of this trainer for exact resume")
+    p.add_argument("--profile", action="store_true",
+                   help="trace steps 10-15 with torch.profiler into "
+                        "<logdir>/profile (a Chrome trace)")
     p.add_argument("--steps", type=int, default=2000)
     p.add_argument("--seed", type=int, default=0,
                    help="seeds the model init, the data sampler and the "
@@ -108,12 +119,27 @@ def step_generator(base: int, step: int, device) -> torch.Generator:
     return g
 
 
+def profiler(device) -> torch.profiler.profile:
+    """`torch.profiler` of the CPU, and of CUDA on a CUDA device."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(activities=activities)
+
+
+def write_trace(prof, logdir: str, first: int, last: int) -> str:
+    """`prof`'s Chrome trace of steps `first`-`last` in
+    `<logdir>/profile/`; returns its path."""
+    out = os.path.join(logdir, "profile")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, f"trace_steps_{first}-{last}.json")
+    prof.export_chrome_trace(path)
+    return path
+
+
 def main(argv=None):
     args = parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda, but torch.cuda.is_available() is "
-                           "False (use --device cpu to train on the CPU)")
+    device = trainer.require_device(args.device)
     cfg = build_config(args)
     trainer.check_config(cfg)
     if not args.synthetic and not cfg.data_basedir:
@@ -146,10 +172,12 @@ def main(argv=None):
     every = int(cfg.savemodel_every_k_steps or 0)
     timed = device.type == "cuda"
     summary = {"restored": restored, "steps": args.steps, "wait_s": [],
-               "launches": [], "events": []}
+               "launches": [], "events": [], "profile": None}
     t0 = time.time()
     start = state.step
-    with open(os.path.join(logdir, "metrics.jsonl"), "a") as log:
+    profiling = args.profile and args.steps >= 16
+    tracing = contextlib.ExitStack()  # stops the profiler, also on a raise
+    with open(os.path.join(logdir, "metrics.jsonl"), "a") as log, tracing:
         for i in range(start, start + args.steps):
             t_wait = time.perf_counter()
             raw = next(batches)
@@ -158,6 +186,8 @@ def main(argv=None):
             if timed:
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                 ev[0].record()
+            if profiling and i == start + 10:
+                prof = tracing.enter_context(profiler(device))
             batch = trainer.to_device(raw, device)
             pairgen = (step_generator(1000 + args.seed, i, device)
                        if "pc1" in batch else None)
@@ -170,6 +200,12 @@ def main(argv=None):
             after = kernels.counts()
             summary["launches"].append(
                 {k: after[k] - before[k] for k in after})
+            if profiling and i == start + 15:
+                if timed:
+                    torch.cuda.synchronize(device)
+                tracing.close()
+                summary["profile"] = write_trace(prof, logdir, i - 5, i)
+                print(f"profile: {summary['profile']}", flush=True)
             last = i == start + args.steps - 1
             if i % 50 == 0 or last:
                 m = {k: round(float(v), 5) for k, v in metrics.items()}

@@ -116,10 +116,24 @@ class TrainState:
     step: int = 0
 
 
-def init_state(cfg, seed: int = 0, device="cpu") -> TrainState:
+def require_device(device) -> torch.device:
+    """`device` as a torch.device; raises RuntimeError when it is a CUDA
+    device and there is none.  The port's entry points default to the
+    card and run on the CPU only when asked for."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device}, but torch.cuda.is_available()"
+                           " is False (ask for the CPU: --device cpu or "
+                           "device='cpu')")
+    return device
+
+
+def init_state(cfg, seed: int = 0, device="cuda") -> TrainState:
     """A fresh model (Flax initialisers, drawn from `seed`) on `device`
-    and its optimizer."""
+    and its optimizer.  `device` defaults to the card and raises when
+    there is none (`require_device`)."""
     check_config(cfg)
+    device = require_device(device)
     torch.manual_seed(seed)
     model = DH3D(cfg).to(device)
     return TrainState(model, make_optimizer(cfg, model))
@@ -239,6 +253,21 @@ def make_train_step(cfg):
         return {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
 
     return train_step
+
+
+def make_eval_step(cfg, model: DH3D):
+    """eval_step(batch) -> outs: the forward of `batch["points"]` with the
+    batch's optional `sample_inds`, in eval mode, without gradients
+    (`trainer.py:265-278`).  The JAX step takes the variables as an
+    argument; this one runs `model`, on whatever device it lives."""
+
+    def eval_step(batch: dict) -> dict:
+        model.eval()
+        with torch.no_grad():
+            return model(batch["points"],
+                         sample_inds=batch.get("sample_inds"))
+
+    return eval_step
 
 
 # ------------------------------ checkpoints ------------------------------

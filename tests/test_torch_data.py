@@ -427,13 +427,13 @@ def test_resumed_run_draws_what_an_unbroken_run_draws(pool, tmp_path):
         return step(state, batches[i], step_generator(1003, i, "cpu"),
                     step_generator(2003, i, "cpu"))
 
-    state = init_state(tc, 3)
+    state = init_state(tc, 3, "cpu")
     unbroken = [run(state, i) for i in range(3)]
-    state = init_state(tc, 3)
+    state = init_state(tc, 3, "cpu")
     for i in range(2):
         run(state, i)
     path = save_checkpoint(str(tmp_path), state)
-    fresh = restore_state(path, init_state(tc, 8))
+    fresh = restore_state(path, init_state(tc, 8, "cpu"))
     resumed = run(fresh, fresh.step)
     for k, v in unbroken[2].items():
         assert torch.equal(v, resumed[k]), k

@@ -210,6 +210,9 @@ def test_port_imports_no_jax():
         "import dh3d_tpu_torch.ops.knn, dh3d_tpu_torch.ops.flex\n"
         "import dh3d_tpu_torch.ops.grouping, dh3d_tpu_torch.ops.sampling\n"
         "import dh3d_tpu_torch.ops.interpolate, dh3d_tpu_torch.nn.layers\n"
+        "import dh3d_tpu_torch.bench, dh3d_tpu_torch.scripts\n"
+        "import dh3d_tpu_torch.scripts.package_checkpoint\n"
+        "import dh3d_tpu_torch.scripts.train_demo_curriculum\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'flax', 'dh3d_tpu', 'sklearn'))\n"
         "assert not bad, bad\n")

@@ -131,7 +131,7 @@ def test_remat_step_equals_the_step_without(name):
     for remat in (False, True):
         cfg = tcfg.dotdict(dict(tc))
         cfg.remat = remat
-        state = init_state(cfg, 0)
+        state = init_state(cfg, 0, "cpu")
         state.model.train()
         total, metrics, _ = forward_loss(state.model, cfg, batch)
         total.backward()

@@ -44,6 +44,7 @@ from dh3d_tpu_torch.train import (
     init_state,
     kernel_l2,
     lr_schedule,
+    make_eval_step,
     make_train_step,
     param_labels,
     prepare_batch,
@@ -111,7 +112,7 @@ def test_adam_steps_match_optax(clip):
     for c in (jc, tc):
         c.freezedetection = True
         c.decay_step, c.start_lr, c.grad_clip_norm = 2, 1e-3, clip
-    state = init_state(tc, 0)
+    state = init_state(tc, 0, "cpu")
     names = [n for n, _ in state.model.named_parameters()]
     params = {n: p.detach().numpy().copy()
               for n, p in state.model.named_parameters()}
@@ -262,7 +263,7 @@ def _compare_step(name, variables, batch, port_batch=None, **overrides):
     for c in (jc, tc):
         c.update(overrides)
     jm, jbs, jg = _jax_step(jc, variables, batch)
-    state = init_state(tc, 0)
+    state = init_state(tc, 0, "cpu")
     load_flax(state.model, flatten_variables(variables))
     state.model.train()
     if port_batch is None:
@@ -335,7 +336,7 @@ def test_global_step_matches_jax():
 def test_loss_falls_over_8_steps():
     _, tc = configs("detection_config")
     tc.start_lr = 1e-3
-    state = init_state(tc, 0)
+    state = init_state(tc, 0, "cpu")
     batch = to_device(next(synthetic_batches(tc, 0)), "cpu")
     step = make_train_step(tc)
     losses = [float(step(state, batch)["total_cost"]) for _ in range(8)]
@@ -348,7 +349,7 @@ def test_loss_falls_over_8_steps():
                                   "global_config"])
 def test_every_preset_takes_a_step(name):
     _, tc = configs(name)
-    state = init_state(tc, 0)
+    state = init_state(tc, 0, "cpu")
     m = make_train_step(tc)(state, to_device(next(synthetic_batches(tc, 0)),
                                              "cpu"))
     assert np.isfinite(float(m["total_cost"]))
@@ -365,7 +366,7 @@ def test_resolve_model_reads_a_flax_checkpoint():
 
 def test_frozen_group_unchanged_by_a_step():
     _, tc = configs("global_config")
-    state = init_state(tc, 0)
+    state = init_state(tc, 0, "cpu")
     before = {k: v.clone() for k, v in state.model.state_dict().items()}
     make_train_step(tc)(state, to_device(next(synthetic_batches(tc, 0)),
                                          "cpu"))
@@ -386,11 +387,11 @@ def test_checkpoint_exact_resume(tmp_path):
     batches = synthetic_batches(tc, 0)
     b1, b2 = (to_device(next(batches), "cpu") for _ in range(2))
     step = make_train_step(tc)
-    state = init_state(tc, 0)
+    state = init_state(tc, 0, "cpu")
     step(state, b1)
     path = save_checkpoint(str(tmp_path), state)
     assert path.endswith("step_00000001.pt")
-    fresh = restore_state(path, init_state(tc, 5))
+    fresh = restore_state(path, init_state(tc, 5, "cpu"))
     assert fresh.step == 1
     m1, m2 = step(state, b2), step(fresh, b2)
     for k in m1:
@@ -493,3 +494,118 @@ def test_train_entry_point_refuses_what_it_cannot_do(tmp_path):
         with pytest.raises(RuntimeError, match="cuda"):
             train_main(["--cfg", "detection_config", "--synthetic",
                         "--logdir", str(tmp_path)])
+
+
+# ------------------------ the entry points' surface ------------------------
+
+def test_profile_writes_a_trace_of_steps_10_to_15(tmp_path):
+    """`--profile` over 16 small synthetic steps writes one Chrome trace
+    into <logdir>/profile/ (CPU activity here), named in the summary; 15
+    steps write none, as `train.py --profile` (the trace stops after step
+    start + 15)."""
+    common = ["--cfg", "detection_config", "--synthetic", "--device", "cpu",
+              "--num_points", "256", "--batch_size", "1", "--set",
+              "sampled_kpnum=8", "--profile"]
+    logdir = str(tmp_path / "sixteen")
+    s = train_main(common + ["--steps", "16", "--logdir", logdir])
+    assert s["profile"] == os.path.join(logdir, "profile",
+                                        "trace_steps_10-15.json")
+    assert os.listdir(os.path.join(logdir, "profile")) == [
+        "trace_steps_10-15.json"]
+    with open(s["profile"]) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "aten::linear" in names
+    short = str(tmp_path / "fifteen")
+    s = train_main(common + ["--steps", "15", "--logdir", short])
+    assert s["profile"] is None
+    assert not os.path.exists(os.path.join(short, "profile"))
+
+
+def test_make_eval_step_is_the_eval_forward():
+    """`make_eval_step` = the model's forward in eval mode without
+    gradients, with the batch's sample_inds; the model is left in eval
+    mode whatever mode it was in."""
+    _, tc = configs("detection_config")
+    state = init_state(tc, 0, "cpu")
+    batch = to_device(next(synthetic_batches(tc, 0)), "cpu")
+    step = make_train_step(tc)
+    step(state, batch)  # moved BN statistics, so eval mode shows
+    model = state.model
+    model.train()
+    outs = make_eval_step(tc, model)(batch)
+    assert not model.training
+    with torch.no_grad():
+        want = model(batch["points"], sample_inds=batch["sample_inds"])
+    assert set(outs) == set(want) and "feat_sampled" in outs
+    for k, v in want.items():
+        assert not outs[k].requires_grad
+        assert torch.equal(outs[k], v), k
+    with pytest.raises(ValueError, match="sample_inds"):
+        make_eval_step(tc, model)({"points": batch["points"]})
+
+
+def test_concat_tuple_clouds_matches_jax():
+    """`tests/test_misc_ops.py`'s case, then each part left out (None or
+    absent from the config)."""
+    from dh3d_tpu.nn.model import concat_tuple_clouds as jax_concat
+    from dh3d_tpu_torch.nn import concat_tuple_clouds
+
+    rng = np.random.RandomState(0)
+    parts = {"anchor": rng.randn(2, 16, 3), "pos": rng.randn(2, 32, 3),
+             "neg": rng.randn(2, 8 * 16, 3), "otherneg": rng.randn(2, 16, 3)}
+    parts = {k: v.astype(np.float32) for k, v in parts.items()}
+    cases = [{}, {"pos": None}, {"neg": None}, {"otherneg": None},
+             {"num_pos": 0}, {"num_neg": 0}, {"other_neg": False},
+             {"pos": None, "neg": None, "otherneg": None}]
+    for case in cases:
+        jc, tc = jcfg.get_config("global_config"), tcfg.get_config(
+            "global_config")
+        jc.num_points = tc.num_points = 16
+        args = dict(parts)
+        for k, v in case.items():
+            if k in args:
+                args[k] = v
+            else:
+                jc[k] = tc[k] = v
+        want = np.asarray(jax_concat(
+            jc, **{k: None if v is None else jnp.asarray(v)
+                   for k, v in args.items()}))
+        got = concat_tuple_clouds(
+            tc, **{k: None if v is None else torch.from_numpy(v)
+                   for k, v in args.items()})
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=str(case))
+    assert want.shape == (2, 16, 3)
+
+
+def test_entry_points_default_to_the_card():
+    """Every public entry point asks for the card unless told otherwise,
+    and raises where there is none (the CPU runs only when asked for)."""
+    import inspect
+
+    from dh3d_tpu_torch import bench
+    from dh3d_tpu_torch.entry import entry
+    from dh3d_tpu_torch.eval import match_descriptors_mutual
+    from dh3d_tpu_torch.evaluate.registration_eval import run_pair
+    from dh3d_tpu_torch.scripts import train_demo_curriculum
+
+    for fn in (init_state, entry, run_pair, match_descriptors_mutual,
+               bench.bench_forward, bench.bench_train_step,
+               bench.bench_knn, bench.bench_flex_conv):
+        assert inspect.signature(fn).parameters["device"].default == \
+            "cuda", fn.__name__
+    # the eval step runs the model it is given: it builds none of its own
+    assert inspect.signature(make_eval_step).parameters["model"].default \
+        is inspect.Parameter.empty
+    if torch.cuda.is_available():
+        return
+    _, tc = configs("detection_config")
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_state(tc)
+    with pytest.raises((RuntimeError, AssertionError)):
+        entry()
+    with pytest.raises((RuntimeError, AssertionError)):
+        match_descriptors_mutual(np.eye(3), np.eye(3))
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench.main([])
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_demo_curriculum.main(["--pool", "P", "--out", "O"])

@@ -32,7 +32,7 @@ def test_checkpoint_restores_what_the_flax_file_restores(tmp_path):
     the count `smart_init` gets from the npz (the local backbone), and
     every restored tensor equals the npz route's."""
     flat = load_npz(os.path.join(MODELS, "demo_stage2.npz"))
-    state = init_state(tcfg.get_config("detection_config"), 0)
+    state = init_state(tcfg.get_config("detection_config"), 0, "cpu")
     load_flax(state.model, flat)
     path = save_checkpoint(str(tmp_path / "ckpt"), state, 7)
     assert latest_checkpoint(str(tmp_path)) == path
