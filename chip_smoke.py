@@ -173,6 +173,29 @@ result line:
      --profile` over 16 synthetic `detection_config` steps at [20, 8192]:
      the Chrome trace under `<logdir>/profile/` names the CUDA kernels of
      A-G.
+ 16. the bf16 compute_dtype: (a) the bf16 cases of kernels C and E
+     (`flex_moments_bf16`, `flex_moments_backward_bf16`) against their
+     plain versions at the forward's and the step's shapes ([20, 8192]
+     with C = 32 and 64, [20, 1024] with C = 64 and 128), each with its
+     device time, bound (bf16 features at 2 bytes), library route and the
+     f32 case's time on the same values; (b) `entry()`'s model with
+     compute_dtype="bfloat16" and the demo weights at [20, 8192]: over one
+     forward the bf16 case of C 5 times, the f32 case never, every other
+     kernel as often as phase 4's; outputs checked as phase 4's; clouds/s
+     and peak memory in turns with the f32 forward, and a profiler split;
+     (c) that forward at [2, 8192] on the card and on the CPU: indices
+     equal, outputs f32 and within the bf16 limits below, and closer to
+     the CPU's bf16 forward than its f32 forward is; (d) the phase-6 step
+     in bf16: launches (E's bf16 case as often as phase 6's f32 case),
+     gradients, BN statistics, split and peak memory beside phase 6's; (e)
+     bf16 against f32 on 4 normalised lidar-like clouds, demo weights: the
+     cosines of the local and global descriptors and the NMS keypoint
+     overlap (reported, not checked); (f) the training CLI with `--set
+     compute_dtype='"bfloat16"'` (3 synthetic steps at [20, 8192]), the
+     exporter on its logdir (the config keeps the key), the local
+     extraction CLI from the export (NMS, 2 scans) and the global one from
+     demo_stage3's arrays under a bf16 config.  bf16 products accumulate
+     in f32 (`allow_bf16_reduced_precision_reduction` off).
 The last three lines: the card, the kernels JSON, the ok JSON.
 
 To compare two trees of the port on one card (run them in turns: parent,
@@ -251,6 +274,22 @@ WSUM_REL = 1e-5
 # on both sides) and are held to 1e-3 of the model's largest gradient.
 TRAIN_LOSS_REL = 1e-4
 TRAIN_GRAD_REL = 1e-3
+# Phase 16, bf16 (PERF.md §2's bf16 limits).  One bf16 step is up to 2^-7
+# of a value.  (a) the bf16 cases of C and E against their plain versions:
+# a value rounded to bf16 (C's m0, E's output) within one step plus
+# WSUM_REL of the tensor's largest (the f32 sums before the rounding
+# differ in order, so a value near a rounding boundary lands one step
+# apart), C's f32 moments within WSUM_REL.  (c) card against CPU: such
+# flips spread through the layers, so unit-scale outputs are held by their
+# largest difference and their root mean square, `feat` by shares of its
+# largest magnitude; and each descriptor's rms difference must be under
+# half the CPU's bf16-f32 one, which a forward that ran f32 would not be.
+BF16_STEP = 2.0 ** -7
+BF16_CARD_VS_CPU = {"local_desc": (0.2, 1e-3), "attention": (4e-2, 3e-3),
+                    "global_desc": (2e-4, 5e-5),
+                    "xyz_feat_att": (0.2, 1e-3)}
+BF16_FEAT_REL = (1e-2, 5e-5)
+BF16_CLOSER = 2.0
 
 BANDED = "dh3d_tpu/ops/pallas/banded_pallas.py"
 REPLACES = {
@@ -265,10 +304,14 @@ REPLACES = {
     "fps": ("dh3d_tpu/ops/pallas/fps_pallas.py:31", []),
     "weighted_sum": (f"{BANDED}:77", [f"{BANDED}:1294"]),
     "flex_moments": (f"{BANDED}:432", [f"{BANDED}:1294"]),
+    # C's bf16 case: the kernel's bf16 feature window (`:565`)
+    "flex_moments_bf16": (f"{BANDED}:432", [f"{BANDED}:1294"]),
     "neighbor_max": (f"{BANDED}:896", []),
     "weighted_sum_backward": (f"{BANDED}:147", [f"{BANDED}:105",
                                                 f"{BANDED}:1294"]),
     "flex_moments_backward": (f"{BANDED}:479", [f"{BANDED}:1294"]),
+    # E's bf16 case: the kernel's single bf16 plane (`:534-537`)
+    "flex_moments_backward_bf16": (f"{BANDED}:479", [f"{BANDED}:1294"]),
     "neighbor_max_backward": (f"{BANDED}:187", [f"{BANDED}:1294"]),
 }
 SOURCES = {
@@ -277,8 +320,9 @@ SOURCES = {
     "knn_window": "dh3d_tpu_torch/csrc/knn_window.cu",
     "fps": "dh3d_tpu_torch/csrc/fps.cu",
     **{name: "dh3d_tpu_torch/csrc/neighborhood.cu"
-       for name in ("weighted_sum", "flex_moments", "neighbor_max",
-                    "weighted_sum_backward", "flex_moments_backward",
+       for name in ("weighted_sum", "flex_moments", "flex_moments_bf16",
+                    "neighbor_max", "weighted_sum_backward",
+                    "flex_moments_backward", "flex_moments_backward_bf16",
                     "neighbor_max_backward")},
 }
 # The card's rates for the bounds (H100 SXM datasheet: HBM3, and f32
@@ -305,6 +349,11 @@ EXTRACT_KERNELS = FORWARD_KERNELS
 TRAIN_KERNELS = FORWARD_KERNELS + ("weighted_sum_backward",
                                    "flex_moments_backward",
                                    "neighbor_max_backward")
+# the bf16 compute_dtype (phase 16) takes the bf16 cases of C and E on the
+# positions instead of the f32 ones
+BF16_CASES = {"flex_moments": "flex_moments_bf16",
+              "flex_moments_backward": "flex_moments_backward_bf16"}
+BF16_TRAIN_KERNELS = tuple(BF16_CASES.get(k, k) for k in TRAIN_KERNELS)
 NMS = {"k": 50, "radius": 0.5, "ratio": 0.01, "max_kp": 512}  # CLI defaults
 # Phase 12: the relocalisation CLI's defaults, its database and queries
 RELOC = {"num_points": 4096, "nms_max_kp": 256, "ransac_iters": 500,
@@ -1185,12 +1234,16 @@ def profile_step(torch, step):
     return split
 
 
-def train_phase(torch, kernels, device):
-    """Phase 6.  Returns (launches over one counted step, report)."""
+def train_phase(torch, kernels, device, overrides=None,
+                must_launch=TRAIN_KERNELS):
+    """Phase 6 (and 16 (d), with `overrides` of the config and the kernels
+    its step must launch).  Returns (launches over one counted step,
+    report)."""
     from dh3d_tpu_torch.train import (forward_loss, make_train_step,
                                       synthetic_local_batches, to_device)
 
     cfg = stage2_config()
+    cfg.update(overrides or {})
     B2, N = 2 * cfg.batch_size, cfg.num_points
     state = stage2_state(cfg, device)
     batches = synthetic_local_batches(cfg, seed=0)
@@ -1208,7 +1261,7 @@ def train_phase(torch, kernels, device):
     launches = kernels.counts()
     log(f"  launches in one train step: {launches}; CSR inverses built: "
         f"{len(builds.nbh)}")
-    for name in TRAIN_KERNELS:
+    for name in must_launch:
         assert launches[name] > 0, \
             f"kernel {name} was not launched by the train step"
     assert builds.nbh and len(builds.nbh) == builds.distinct(), \
@@ -2214,9 +2267,10 @@ def window_phase(torch, T, kernels, device, cases):
     return checked
 
 
-def legacy_forward_fn(device, batch, seed=0):
-    """(fn, points): the main-path model with morton_exact=False on
-    `device`, the entry weights, `batch` clouds of `entry`'s seed."""
+def entry_forward_fn(device, batch, points=None, **overrides):
+    """(fn, points): the main-path model with the config `overrides` on
+    `device`, the entry weights, `batch` clouds of `entry`'s seed (or
+    `points`)."""
     import torch
 
     from dh3d_tpu_torch.entry import entry_config, entry_points, entry_weights
@@ -2224,11 +2278,12 @@ def legacy_forward_fn(device, batch, seed=0):
     from dh3d_tpu_torch.nn import DH3D, load_flax
 
     cfg = entry_config()
-    cfg.morton_exact = False
+    cfg.update(overrides)
     model = DH3D(cfg).to(device)
     load_flax(model, entry_weights())
-    points = torch.from_numpy(entry_points(batch, seed=seed)).to(device)
-    return make_forward(cfg, model), points
+    if points is None:
+        points = entry_points(batch)
+    return make_forward(cfg, model), torch.as_tensor(points).to(device)
 
 
 def legacy_forward_phase(torch, kernels, device, fwd_launches):
@@ -2238,7 +2293,7 @@ def legacy_forward_phase(torch, kernels, device, fwd_launches):
     from dh3d_tpu_torch.entry import entry
 
     B, N = 20, 8192
-    fn, points = legacy_forward_fn(device, B)
+    fn, points = entry_forward_fn(device, B, morton_exact=False)
     exact_fn, (exact_points,) = entry(device, batch=B)
     torch.cuda.synchronize()
     kernels.reset_counts()
@@ -2271,8 +2326,8 @@ def legacy_forward_phase(torch, kernels, device, fwd_launches):
 def card_vs_cpu_legacy(torch, device):
     """Phase 14 (c): the legacy forward at [2, 8192] on the card and on
     the CPU: indices equal, descriptors within phase 5's tolerances."""
-    fn_gpu, p_gpu = legacy_forward_fn(device, 2)
-    fn_cpu, p_cpu = legacy_forward_fn("cpu", 2)
+    fn_gpu, p_gpu = entry_forward_fn(device, 2, morton_exact=False)
+    fn_cpu, p_cpu = entry_forward_fn("cpu", 2, morton_exact=False)
     o_cpu = fn_cpu(p_cpu)
     o_gpu = {k: v.cpu() for k, v in fn_gpu(p_gpu).items()}
     for key in ("xyz", "knn_indices"):
@@ -2743,6 +2798,262 @@ def profile_phase(work):
             "step_ms_median": step_ms}
 
 
+# ------------------------- phase 16: bf16 compute_dtype -------------------------
+
+def bf16_close(out, ref):
+    """Within one bf16 step of each value plus WSUM_REL of the largest
+    (phase 16's limits); returns the largest difference."""
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs()
+    assert (err <= BF16_STEP * ref.abs()
+            + WSUM_REL * ref.abs().max()).all(), err.max().item()
+    return err.max().item()
+
+
+def bf16_kernel_phase(torch, T, device, cases):
+    """Phase 16 (a): the bf16 cases of C and E at row 7's and row 10's
+    shapes against their plain versions, each with its device time, bound
+    (bf16 features and feature gradients count 2 bytes), library route and
+    the f32 case's time on the same values (`f32_ms`)."""
+    pts, sub, nbh, nbh1, _ = train_geometry(torch, T, device)
+    B, N, K = nbh.shape
+    M = sub.shape[1]
+    g = torch.Generator(device="cpu").manual_seed(16)
+    case = partial(measure_case, torch, cases)
+    for C, pos, idx, keys in ((64, pts, nbh, N), (32, pts, nbh, N),
+                              (64, sub, nbh1, M), (128, sub, nbh1, M)):
+        label = f"P=4 C={C} K=8 [{B},{idx.shape[1]}] bf16"
+        f = torch.randn(B, keys, C, generator=g).to(device).bfloat16()
+        f32 = f.float()
+        w = T.flex_weights(pos, idx)
+        # the library route: one f32 sparse product on the bf16 deltas (its
+        # m0 unrounded: within half a bf16 step)
+        S = sparse_rows(torch, idx, torch.cat(
+            [w[..., :1], w[..., 1:].bfloat16().float()], -1), keys)
+        f2 = f32.reshape(-1, C)
+
+        def moments_close(out, ref, C=C):
+            o, r = out.view(*out.shape[:2], 4, C), ref.view(*ref.shape[:2],
+                                                            4, C)
+            err = bf16_close(o[:, :, 0], r[:, :, 0])
+            rest = (o[:, :, 1:] - r[:, :, 1:]).abs().max().item()
+            assert rest <= WSUM_REL * r[:, :, 1:].abs().max().item(), rest
+            return max(err, rest)
+
+        case("flex_moments_bf16", label,
+             partial(T.flex_moments, f, pos, idx),
+             partial(T.flex_moments_plain, f, pos, idx), moments_close,
+             (f, idx, pos), 2 * w.numel() * C,
+             library_fn=lambda S=S, f2=f2, idx=idx: torch.sparse.mm(
+                 S, f2).reshape(idx.shape[0], idx.shape[1], -1),
+             info={"plan": list(T.row_plan(C, K))},
+             f32_ms=partial(T.flex_moments, f32, pos, idx))
+        dm = torch.randn(B, idx.shape[1], 4 * C, generator=g).to(device)
+        inv = T.NeighborInverse(idx, keys)
+        csr = inv.get()
+        plain = partial(T.flex_moments_backward_plain, dm, pos, idx, keys,
+                        torch.bfloat16)
+        case("flex_moments_backward_bf16", label.replace("P=4", "dM P=4"),
+             partial(T.flex_moments_backward, dm, pos, idx, inv,
+                     torch.bfloat16),
+             plain, bf16_close, (dm, pos, idx, *csr), 2 * w.numel() * C,
+             library_fn=plain,
+             f32_ms=partial(T.flex_moments_backward, dm, pos, idx, inv))
+
+
+def bf16_forward_phase(torch, kernels, device, fwd_launches):
+    """Phase 16 (b): the bf16 forward at [20, 8192]: over one forward the
+    bf16 case of C as often as phase 4's forward launches the f32 case
+    (5), which it does not launch, every other kernel as often; outputs
+    checked as phase 4's; clouds/s and peak memory in turns with the f32
+    forward."""
+    B, N = 20, 8192
+    fns = {d: entry_forward_fn(device, B, compute_dtype=d)
+           for d in ("float32", "bfloat16")}
+    fn, points = fns["bfloat16"]
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    outs = fn(points)
+    torch.cuda.synchronize()
+    launches = kernels.counts()
+    log(f"  launches in one bf16 forward: {launches}")
+    want = dict(fwd_launches)
+    for f32_case, bf16_case in BF16_CASES.items():
+        want[bf16_case], want[f32_case] = want[f32_case], 0
+    assert launches == want, (launches, want)
+    assert launches["flex_moments_bf16"] == 5, launches
+    check_outputs(torch, outs, points, B, N)
+    del outs
+    ms = {"float32": [], "bfloat16": []}
+    peak = {}
+    for d in ("float32", "bfloat16", "bfloat16", "float32"):
+        f, p = fns[d]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        f(p)
+        torch.cuda.synchronize()
+        peak[d] = torch.cuda.max_memory_allocated() / 1e9
+        ms[d].append(cuda_ms(torch, lambda: f(p), warmup=2, reps=10))
+    report = {"shape": [B, N, 3], "launches": launches,
+              "ms": ms, "peak_mem_gb": peak,
+              "clouds_per_s": {d: B / (statistics.median(v) / 1e3)
+                               for d, v in ms.items()}}
+    try:
+        report["profile_ms"] = profile_step(torch, lambda: fn(points))
+        report["profile_ms"].pop("E + F + inverse builds", None)
+    except Exception as e:  # the split is a report, not a check
+        report["profile_ms"] = {"not measured": repr(e)}
+    log(f"  forward, in turns (f32, bf16, bf16, f32): f32 {ms['float32']} "
+        f"ms, bf16 {ms['bfloat16']} ms (CUDA events, median of 10 each); "
+        f"{report['clouds_per_s']['float32']:.1f} against "
+        f"{report['clouds_per_s']['bfloat16']:.1f} clouds/s; peak {peak} GB;"
+        f" profile of one bf16 forward (device ms) {report['profile_ms']}")
+    return launches, report
+
+
+def _rms(t) -> float:
+    return t.double().pow(2).mean().sqrt().item()
+
+
+def card_vs_cpu_bf16(torch, device):
+    """Phase 16 (c): the bf16 forward at [2, 8192] on the card and on the
+    CPU: indices equal, outputs f32 and within `BF16_CARD_VS_CPU`, and the
+    descriptors closer to the CPU's bf16 forward than its f32 forward is
+    (`BF16_CLOSER`)."""
+    fn_gpu, p_gpu = entry_forward_fn(device, 2, compute_dtype="bfloat16")
+    fn_cpu, p_cpu = entry_forward_fn("cpu", 2, compute_dtype="bfloat16")
+    fn_f32, _ = entry_forward_fn("cpu", 2)
+    o_cpu, o_f32 = fn_cpu(p_cpu), fn_f32(p_cpu)
+    o_gpu = {k: v.cpu() for k, v in fn_gpu(p_gpu).items()}
+    for key in ("xyz", "knn_indices"):
+        assert torch.equal(o_gpu[key], o_cpu[key]), key
+    report = {}
+    for key, (top, rms) in {**BF16_CARD_VS_CPU, "feat": BF16_FEAT_REL}.items():
+        assert o_gpu[key].dtype == torch.float32, key
+        err = o_gpu[key] - o_cpu[key]
+        scale = o_cpu[key].abs().max().item() if key == "feat" else 1.0
+        report[key] = {"max": err.abs().max().item(), "rms": _rms(err),
+                       "scale": scale}
+        assert report[key]["max"] <= top * scale, (key, report[key])
+        assert report[key]["rms"] <= rms * scale, (key, report[key])
+    for key in ("local_desc", "global_desc"):
+        f32_rms = _rms(o_f32[key] - o_cpu[key])
+        report[key]["cpu_f32_rms"] = f32_rms
+        assert BF16_CLOSER * report[key]["rms"] <= f32_rms, (key, report)
+    log(f"  indices equal; card - CPU, bf16: {report}")
+    return report
+
+
+def bf16_agreement(torch, device):
+    """Phase 16 (e), reported: the bf16 forward against the f32 forward on
+    4 normalised lidar-like clouds at N=8192, demo weights: the cosine of
+    each point's local descriptor and each cloud's global descriptor, and
+    the share of the f32 forward's NMS keypoints (the CLI's defaults) that
+    the bf16 forward's attention also selects."""
+    from dh3d_tpu_torch.eval.nms import device_nms
+
+    clouds = np.stack([eval_cloud(100 + s, 8192) for s in range(4)])
+    outs = {}
+    for d in ("float32", "bfloat16"):
+        fn, points = entry_forward_fn(device, 4, clouds, compute_dtype=d)
+        outs[d] = fn(points)
+    a, b = outs["float32"], outs["bfloat16"]
+    local = (a["local_desc"] * b["local_desc"]).sum(-1)
+    glob = (a["global_desc"] * b["global_desc"]).sum(-1)
+    overlap = []
+    for i in range(len(clouds)):
+        kps = [set(device_nms(o["xyz"][i], o["attention"][i], NMS["radius"],
+                              NMS["ratio"], NMS["max_kp"],
+                              device=device)[1].tolist()) - {-1}
+               for o in (a, b)]
+        overlap.append(len(kps[0] & kps[1]) / max(1, len(kps[0])))
+    report = {"local_cos_min": local.min().item(),
+              "local_cos_mean": local.mean().item(),
+              "local_cos_p01": local.flatten().quantile(0.01).item(),
+              "global_cos": glob.tolist(), "nms_overlap": overlap,
+              "attention_max_diff": (a["attention"] - b["attention"]).abs()
+              .max().item()}
+    log(f"  bf16 against f32, demo weights, 4 clouds [8192]: {report}")
+    return report
+
+
+def bf16_cli_phase(torch, kernels, work, device="cuda"):
+    """Phase 16 (f): `python -m dh3d_tpu_torch.train --set
+    compute_dtype='"bfloat16"'` (3 synthetic detection_config steps at
+    [20, 8192], in this process), the exporter on its logdir (the config
+    keeps the key), the local extraction CLI with NMS from the export on 2
+    scans (the bf16 case of C launched, f32 keypoint files), and the global
+    extraction CLI from demo_stage3's arrays under a bf16 config."""
+    from dh3d_tpu_torch import config as cfglib
+    from dh3d_tpu_torch.data.io import write_to_bin
+    from dh3d_tpu_torch.evaluate import globaldesc_extract, localdesc_extract
+    from dh3d_tpu_torch.scripts.package_checkpoint import main as export
+    from dh3d_tpu_torch.train.__main__ import main as train_main
+
+    logdir = os.path.join(work, "train_bf16")
+    kernels.reset_counts()
+    s = train_main(["--cfg", "detection_config", "--synthetic", "--steps",
+                    "3", "--set", 'compute_dtype="bfloat16"', "--logdir",
+                    logdir, "--device", str(device)])
+    torch.cuda.synchronize()
+    train_launches = kernels.counts()
+    assert all(map(math.isfinite, s["metrics"].values())), s["metrics"]
+    for name in BF16_TRAIN_KERNELS:
+        assert train_launches[name] > 0, (name, train_launches)
+    for name in BF16_CASES:
+        assert train_launches[name] == 0, (name, train_launches)
+    stem = os.path.join(work, "export", "stage2_bf16")
+    export(["--ckpt", logdir, "--out", stem])
+    cfg = cfglib.load_config(stem + ".config.json")
+    assert cfg.compute_dtype == "bfloat16", cfg.compute_dtype
+    scans = os.path.join(work, "scans")
+    os.makedirs(scans)
+    for i in range(2):
+        write_to_bin(lidar_like_scan(200 + i), os.path.join(scans,
+                                                            f"s{i}.bin"))
+    kernels.reset_counts()
+    out = os.path.join(work, "nms")
+    summary = localdesc_extract.main([
+        "--ModelPath", stem, "--pcdpath", scans, "--dim", "3", "--device",
+        str(device), "--batch_size", "1", "--save_dir", out,
+        "--perform_nms"])
+    torch.cuda.synchronize()
+    extract_launches = kernels.counts()
+    assert extract_launches["flex_moments_bf16"] > 0, extract_launches
+    assert extract_launches["flex_moments"] == 0, extract_launches
+    kps = [len(check_rows(os.path.join(out, f"s{i}_nms_res.bin"),
+                          NMS["max_kp"])) for i in range(2)]
+    g_stem = os.path.join(work, "stage3_bf16")
+    shutil.copy("models/demo_stage3.npz", g_stem + ".npz")
+    g_cfg = cfglib.load_config("models/demo_stage3.config.json")
+    g_cfg.compute_dtype = "bfloat16"
+    cfglib.save_config(g_cfg, g_stem + ".config.json")
+    gt = os.path.join(work, "gt.pickle")
+    with open(gt, "wb") as f:
+        pickle.dump({"seq0": [{"query": f"s{i}", "northing": 10.0 * i,
+                               "easting": 0.0} for i in range(2)]}, f)
+    kernels.reset_counts()
+    gsum = globaldesc_extract.main([
+        "--ModelPath", g_stem, "--pcdpath", scans, "--ref_gt_file", gt,
+        "--query_gt_file", gt, "--batch_size", "2", "--num_points", "8192",
+        "--device", str(device), "--save_dir", os.path.join(work, "global")])
+    torch.cuda.synchronize()
+    assert kernels.counts()["flex_moments_bf16"] > 0
+    for i in range(2):
+        d = np.fromfile(os.path.join(work, "global", f"s{i}.bin"), np.float32)
+        assert d.shape == (256,) and np.isfinite(d).all(), i
+        assert abs(np.linalg.norm(d) - 1) < 1e-4, i
+    report = {"train_metrics": s["metrics"],
+              "train_step_ms": s["step_ms"], "keypoints": kps,
+              "local_seconds": summary["seconds"],
+              "global_clouds": gsum["clouds"]}
+    log(f"  train CLI bf16, 3 steps: {s['metrics']['total_cost']:.4f} "
+        f"total_cost, steps {s['step_ms']} ms (CUDA events); "
+        f"export keeps compute_dtype; local extraction from the export: "
+        f"{kps} keypoints; global extraction (bf16 config): 2 descriptors")
+    return train_launches, report
+
+
 def main():
     import torch
 
@@ -2756,6 +3067,8 @@ def main():
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products accumulate in f32 and round once, as the JAX function's
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     device = torch.device("cuda", 0)
 
     from dh3d_tpu_torch import kernels
@@ -2901,9 +3214,41 @@ def main():
     entry_seconds = time.perf_counter() - t15
     log(f"  phase 15: {entry_seconds:.1f} s")
 
-    # `launches`: the count from this slice's path (the legacy forward)
-    # for H, from the relocalisation for the other kernels it runs, from
-    # the train step for E and F
+    log("phase 16: the bf16 compute_dtype")
+    t16 = time.perf_counter()
+    log(" (a) kernels C and E, bf16 cases, against their plain versions")
+    bf16_kernel_phase(torch, T, device, cases)
+    log(" (b) bf16 forward [20, 8192]")
+    bf16_launches, bf16_report = bf16_forward_phase(torch, kernels, device,
+                                                    fwd_launches)
+    log(" (c) card vs CPU bf16 forward [2, 8192]")
+    bf16_report["card_vs_cpu"] = card_vs_cpu_bf16(torch, device)
+    log(" (d) bf16 train step, detection_config [20, 8192]")
+    bf16_train_launches, bf16_report["train"] = train_phase(
+        torch, kernels, device, {"compute_dtype": "bfloat16"},
+        BF16_TRAIN_KERNELS)
+    for f32_case, bf16_case in BF16_CASES.items():
+        assert bf16_train_launches[f32_case] == 0, bf16_train_launches
+        assert (bf16_train_launches[bf16_case]
+                == train_launches[f32_case]), bf16_train_launches
+    bf16_report["train"]["phase_6"] = {
+        k: train_report[k] for k in ("step_ms", "parts_ms", "peak_mem_gb")}
+    log(f"  phase 6's step: {train_report['step_ms']:.2f} ms, "
+        f"{train_report['parts_ms']}, peak {train_report['peak_mem_gb']:.2f}"
+        f" GB")
+    log(" (e) bf16 against f32, demo weights")
+    bf16_report["agreement"] = bf16_agreement(torch, device)
+    log(" (f) train CLI in bf16, the exporter, extraction from the export")
+    with tempfile.TemporaryDirectory() as work:
+        bf16_cli_launches, bf16_report["cli"] = bf16_cli_phase(
+            torch, kernels, work, device)
+    bf16_seconds = time.perf_counter() - t16
+    log(f"  phase 16: {bf16_seconds:.1f} s")
+
+    # `launches`: the count from this slice's path (the bf16 forward and
+    # step) for the bf16 cases, from the legacy forward for H, from the
+    # relocalisation for the other kernels it runs, from the train step for
+    # E and F
     kernel_rows = []
     for name, rows in cases.items():
         main_case = rows[0]
@@ -2911,7 +3256,10 @@ def main():
         kernel_rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": replaces, "also_replaces": also,
-            "launches": (legacy_launches if name == "knn_window"
+            "launches": (bf16_launches if name == "flex_moments_bf16"
+                         else bf16_train_launches
+                         if name == "flex_moments_backward_bf16"
+                         else legacy_launches if name == "knn_window"
                          else reloc_launches if name in FORWARD_KERNELS
                          else train_launches)[name],
             "launches_by_path": {"forward": fwd_launches[name],
@@ -2921,7 +3269,10 @@ def main():
                                  "relocalize": reloc_launches[name],
                                  "legacy_forward": legacy_launches[name],
                                  "bench": bench_launches[name],
-                                 "curriculum": curriculum_launches[name]},
+                                 "curriculum": curriculum_launches[name],
+                                 "bf16_forward": bf16_launches[name],
+                                 "bf16_train_step": bf16_train_launches[name],
+                                 "bf16_train_cli": bf16_cli_launches[name]},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
@@ -2934,6 +3285,7 @@ def main():
     log(json.dumps({"entry_points": {"seconds": entry_seconds,
                                      "bench": bench_report,
                                      "curriculum": curriculum_report}}))
+    log(json.dumps({"bf16": {"seconds": bf16_seconds, **bf16_report}}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": kernel_rows}))

@@ -108,9 +108,33 @@
 // same terms in the same order whatever the plan is, and the moments' p = 0
 // weight is the constant 1, so C on positions gives the bits of C on the
 // weights [1, delta] built outside.
+//
+// The moments and their transpose have a bf16 case each, the model's
+// compute_dtype="bfloat16" (`_flex_moments` of dh3d_tpu/ops/flex.py on bf16
+// features; the TPU kernel reads its feature window as bf16,
+// banded_pallas.py:565, and its backward a single bf16 plane, :534-537).
+// The kernels are the f32 ones templated on the feature type, with the
+// rounding points of the JAX function:
+//   C (dh3d_flex_moments_bf16): features [b, m, c] bf16, read VEC at a time
+//      as one load of 2, 4 or 8 bytes; positions f32; delta = __fsub_rn in
+//      f32, then rounded to bf16 (__float2bfloat16_rn); products and sums
+//      in f32 (a product of two bf16 values is exact in f32); the p = 0
+//      moment, a plain sum of the features (jnp.sum of bf16: an f32 sum
+//      rounded once), rounded to bf16 before it is stored; the moments
+//      written as f32.
+//   E (dh3d_flex_moments_bwd_bf16): weights [1, bf16(delta)]; dM read as
+//      f32 with its p = 0 slice rounded to bf16 (the cotangent of m0, which
+//      JAX rounds when it casts m0 up); the same f32 accumulation in the
+//      same fixed order; dfeat written as bf16, rounded once.  (The JAX
+//      gather path rounds the feature cotangent to bf16 at each add of its
+//      scatter; this rounds once.)
+// The bf16 cases halve the bytes of the gathered rows (C) and of dfeat (E).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -139,6 +163,32 @@ __device__ __forceinline__ void load_vec(const float* p, float (&v)[VEC]) {
   }
 }
 
+// VEC adjacent bf16 values of a row as one load of 2 * VEC bytes, widened
+// to f32 (exact: a bf16 is the upper half of an f32).
+template <int VEC>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
+                                         float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    v[0] = __uint_as_float(t.x << 16), v[1] = __uint_as_float(t.x & 0xffff0000u);
+    v[2] = __uint_as_float(t.y << 16), v[3] = __uint_as_float(t.y & 0xffff0000u);
+  } else if constexpr (VEC == 2) {
+    const unsigned int t = *reinterpret_cast<const unsigned int*>(p);
+    v[0] = __uint_as_float(t << 16), v[1] = __uint_as_float(t & 0xffff0000u);
+  } else {
+    v[0] = __bfloat162float(*p);
+  }
+}
+
+// x rounded to the nearest bf16 (ties to even), as an f32.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ unsigned int bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
 template <int VEC>
 __device__ __forceinline__ void load_vec(const int8_t* p, int (&v)[VEC]) {
   if constexpr (VEC == 4) {
@@ -162,6 +212,25 @@ __device__ __forceinline__ void store_vec(float* p, const float (&v)[VEC]) {
     *p = v[0];
   }
 }
+
+// VEC f32 values rounded to bf16 (ties to even), stored as one store of
+// 2 * VEC bytes.
+template <int VEC>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p,
+                                          const float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(bf16_bits(v[0]) | bf16_bits(v[1]) << 16,
+                   bf16_bits(v[2]) | bf16_bits(v[3]) << 16);
+  } else if constexpr (VEC == 2) {
+    *reinterpret_cast<unsigned int*>(p) = bf16_bits(v[0]) | bf16_bits(v[1]) << 16;
+  } else {
+    *p = __float2bfloat16_rn(v[0]);
+  }
+}
+
+template <typename T>
+constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
 
 // The same as a streaming store (evict-first), for C's output: it is read
 // once, by a matrix product, and should not displace what the gathers hit
@@ -187,10 +256,11 @@ struct RowPlan {
 // C: one row group of `lanes` threads per query row; K at compile time and
 // lanes >= K.  `w` is the weights [rows, K, P] or, for the moments, the
 // positions [b, m, P - 1].  Rows past the end are clamped and not stored,
-// so that whole warps reach the shuffles.
-template <int P, int VEC, int K, bool MOMENTS>
+// so that whole warps reach the shuffles.  T: the features' type (bf16 only
+// for the moments: the header's rounding points).
+template <int P, int VEC, int K, bool MOMENTS, typename T>
 __global__ void __launch_bounds__(kThreads)
-    weighted_sum_unrolled_kernel(const float* __restrict__ feat,
+    weighted_sum_unrolled_kernel(const T* __restrict__ feat,
                                  const int64_t* __restrict__ nbh,
                                  const float* __restrict__ w,
                                  float* __restrict__ out, long long rows,
@@ -221,8 +291,10 @@ __global__ void __launch_bounds__(kThreads)
   }
   if constexpr (MOMENTS) {  // delta = pos[nbh[kk]] - pos[nbh[0]]
 #pragma unroll
-    for (int p = 1; p < P; ++p)
+    for (int p = 1; p < P; ++p) {
       wk[p] = __fsub_rn(wk[p], __shfl_sync(kFullMask, wk[p], 0, lanes));
+      if constexpr (kBf16<T>) wk[p] = round_bf16(wk[p]);
+    }
   }
   int jj[K];
   float ww[K][P];
@@ -235,7 +307,7 @@ __global__ void __launch_bounds__(kThreads)
                       ? 1.0f
                       : __shfl_sync(kFullMask, wk[p], kk, lanes);
   }
-  const float* fb = feat + cloud * m * c;
+  const T* fb = feat + cloud * m * c;
   float* o = out + (size_t)row * P * c;
   for (int pass = 0; pass < plan.passes; ++pass) {
     const int ch = (pass * lanes + lane) * VEC;
@@ -259,6 +331,10 @@ __global__ void __launch_bounds__(kThreads)
           acc[p][v] = fmaf(ww[kk][p], f[kk][v], acc[p][v]);
       }
     }
+    if constexpr (kBf16<T>) {  // m0 = jnp.sum of bf16: rounded once
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) acc[0][v] = round_bf16(acc[0][v]);
+    }
     if (live) {
 #pragma unroll
       for (int p = 0; p < P; ++p)
@@ -269,9 +345,9 @@ __global__ void __launch_bounds__(kThreads)
 
 // C for any K <= 64 and any group size: a loop over k, every thread reading
 // the ids and weights itself.
-template <int P, int VEC, bool MOMENTS>
+template <int P, int VEC, bool MOMENTS, typename T>
 __global__ void __launch_bounds__(kThreads)
-    weighted_sum_loop_kernel(const float* __restrict__ feat,
+    weighted_sum_loop_kernel(const T* __restrict__ feat,
                              const int64_t* __restrict__ nbh,
                              const float* __restrict__ w,
                              float* __restrict__ out, long long rows, int n,
@@ -282,7 +358,7 @@ __global__ void __launch_bounds__(kThreads)
   if (row >= rows) return;
   const int lane = threadIdx.x & (lanes - 1);
   const size_t cloud = (size_t)(row / n);
-  const float* fb = feat + cloud * m * c;
+  const T* fb = feat + cloud * m * c;
   const int64_t* nb = nbh + (size_t)row * k;
   const float* wr = MOMENTS ? w + cloud * m * (P - 1) : w + (size_t)row * k * P;
   float* o = out + (size_t)row * P * c;
@@ -306,8 +382,10 @@ __global__ void __launch_bounds__(kThreads)
       if constexpr (MOMENTS) {
         wv[0] = 1.0f;
 #pragma unroll
-        for (int p = 1; p < P; ++p)
+        for (int p = 1; p < P; ++p) {
           wv[p] = __fsub_rn(wr[j * (P - 1) + p - 1], centre[p]);
+          if constexpr (kBf16<T>) wv[p] = round_bf16(wv[p]);
+        }
       } else {
 #pragma unroll
         for (int p = 0; p < P; ++p) wv[p] = wr[kk * P + p];
@@ -318,6 +396,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int v = 0; v < VEC; ++v) acc[p][v] = fmaf(wv[p], f[v], acc[p][v]);
       }
+    }
+    if constexpr (kBf16<T>) {
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) acc[0][v] = round_bf16(acc[0][v]);
     }
 #pragma unroll
     for (int p = 0; p < P; ++p)
@@ -447,14 +529,16 @@ constexpr int kEntryMask = (1 << kEntryShift) - 1;
 // E: one row group per key row (b, j); each thread VEC channels of it.
 // MOMENTS: `w` is the positions [b, m, P - 1] and the weights of the entry
 // (n, k) of key j are [1, pos[j] - pos[nbh[n, 0]]], as C builds them.
-template <int P, int VEC, bool MOMENTS>
+// T: dfeat's type, the features' (bf16 only for the moments: the header's
+// rounding points).
+template <int P, int VEC, bool MOMENTS, typename T>
 __global__ void __launch_bounds__(kThreads)
     weighted_sum_bwd_kernel(const float* __restrict__ dm,
                             const float* __restrict__ w,
                             const int64_t* __restrict__ nbh,
                             const int32_t* __restrict__ rowptr,
                             const int32_t* __restrict__ ent,
-                            float* __restrict__ dfeat, int rows, int n, int m,
+                            T* __restrict__ dfeat, int rows, int n, int m,
                             int c, int k, int tpr) {
   const int row = blockIdx.x * (kThreads / tpr) + threadIdx.x / tpr;
   if (row >= rows) return;
@@ -488,7 +572,10 @@ __global__ void __launch_bounds__(kThreads)
         const float* centre = wb + (size_t)nbb[(size_t)nn * k] * (P - 1);
         wv[0] = 1.0f;
 #pragma unroll
-        for (int p = 1; p < P; ++p) wv[p] = __fsub_rn(own[p], centre[p - 1]);
+        for (int p = 1; p < P; ++p) {
+          wv[p] = __fsub_rn(own[p], centre[p - 1]);
+          if constexpr (kBf16<T>) wv[p] = round_bf16(wv[p]);
+        }
       } else {
         const float* wr = wb + ((size_t)nn * k + (id & kEntryMask)) * P;
 #pragma unroll
@@ -496,6 +583,10 @@ __global__ void __launch_bounds__(kThreads)
       }
 #pragma unroll
       for (int p = 0; p < P; ++p) load_vec<VEC>(d + (size_t)p * c, dv[p]);
+      if constexpr (kBf16<T>) {  // the cotangent of the bf16 m0
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) dv[0][v] = round_bf16(dv[0][v]);
+      }
     };
     if (begin < end) fetch(eb[begin], wc, dc);
     int id_next = begin + 1 < end ? eb[begin + 1] : 0;
@@ -583,22 +674,23 @@ unsigned int blocks_for(long long rows, int tpr) {
 }
 
 // Whether C or D takes a plan: VEC of 4, 2 or 1 that divides C, with every
-// float base a multiple of VEC floats, every slot base of VEC bytes and
-// every id base of 16 bytes when VEC > 1; a power of two of at most 32
-// lanes; as many passes as cover C and no more.
+// float base a multiple of VEC floats, every bf16 base of VEC bf16s, every
+// slot base of VEC bytes and every id base of 16 bytes when VEC > 1; a
+// power of two of at most 32 lanes; as many passes as cover C and no more.
 bool plan_ok(int c, RowPlan plan, uintptr_t float_bases, uintptr_t byte_bases,
-             uintptr_t id_bases) {
+             uintptr_t id_bases, uintptr_t bf16_bases = 0) {
   const int vec = plan.vec, lanes = plan.lanes;
   if (vec != 1 && vec != 2 && vec != 4) return false;
   if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0) return false;
   if (c % vec != 0 || plan.passes != (c + vec * lanes - 1) / (vec * lanes))
     return false;
   return float_bases % (4 * vec) == 0 && byte_bases % vec == 0 &&
-         (vec == 1 || id_bases % 16 == 0);
+         bf16_bases % (2 * vec) == 0 && (vec == 1 || id_bases % 16 == 0);
 }
 
+template <typename T>
 struct WeightedSumArgs {
-  const float* feat;
+  const T* feat;
   const int64_t* nbh;
   const float* w;  // weights, or positions for the moments
   float* out;
@@ -608,13 +700,13 @@ struct WeightedSumArgs {
   cudaStream_t stream;
 };
 
-template <int P, int VEC, bool MOMENTS>
-void launch_weighted_sum_vec(const WeightedSumArgs& a) {
+template <int P, int VEC, bool MOMENTS, typename T>
+void launch_weighted_sum_vec(const WeightedSumArgs<T>& a) {
   const unsigned int grid = blocks_for(a.rows, a.plan.lanes);
   const bool unrolled = a.plan.lanes >= a.k;
   if constexpr (P == 4) {
     if (a.k == 8 && unrolled) {
-      weighted_sum_unrolled_kernel<P, VEC, 8, MOMENTS>
+      weighted_sum_unrolled_kernel<P, VEC, 8, MOMENTS, T>
           <<<grid, kThreads, 0, a.stream>>>(a.feat, a.nbh, a.w, a.out, a.rows,
                                             a.n, a.m, a.c, a.plan);
       return;
@@ -622,18 +714,18 @@ void launch_weighted_sum_vec(const WeightedSumArgs& a) {
   }
   if constexpr (P == 1 && !MOMENTS) {
     if (a.k == 3 && unrolled) {
-      weighted_sum_unrolled_kernel<P, VEC, 3, false>
+      weighted_sum_unrolled_kernel<P, VEC, 3, false, T>
           <<<grid, kThreads, 0, a.stream>>>(a.feat, a.nbh, a.w, a.out, a.rows,
                                             a.n, a.m, a.c, a.plan);
       return;
     }
   }
-  weighted_sum_loop_kernel<P, VEC, MOMENTS><<<grid, kThreads, 0, a.stream>>>(
+  weighted_sum_loop_kernel<P, VEC, MOMENTS, T><<<grid, kThreads, 0, a.stream>>>(
       a.feat, a.nbh, a.w, a.out, a.rows, a.n, a.m, a.c, a.k, a.plan);
 }
 
-template <int P, bool MOMENTS>
-void launch_weighted_sum(const WeightedSumArgs& a) {
+template <int P, bool MOMENTS, typename T>
+void launch_weighted_sum(const WeightedSumArgs<T>& a) {
   if (a.plan.vec == 4)
     launch_weighted_sum_vec<P, 4, MOMENTS>(a);
   else if (a.plan.vec == 2)
@@ -658,10 +750,11 @@ void launch_neighbor_max(const float* f, const int64_t* nb, float* val,
 // The channels a thread of E or F takes: 4 or 2 where C divides into at
 // least a warp's worth of such vectors and every row base is aligned for
 // them, else 1.
-int vec_width(int c, uintptr_t float_bases, uintptr_t byte_bases) {
+int vec_width(int c, uintptr_t float_bases, uintptr_t byte_bases,
+              uintptr_t bf16_bases = 0) {
   for (int v = 4; v > 1; v /= 2) {
     if (c % v == 0 && c / v >= 32 && float_bases % (4 * v) == 0 &&
-        byte_bases % v == 0)
+        byte_bases % v == 0 && bf16_bases % (2 * v) == 0)
       return v;
   }
   return 1;
@@ -675,32 +768,35 @@ bool bwd_sizes_ok(int b, int n, int m, int c, int k) {
          (long long)n * k <= 0x7fffffff;
 }
 
-template <int P, bool MOMENTS>
+template <int P, bool MOMENTS, typename T>
 void launch_weighted_sum_bwd(int vec, unsigned int grid, cudaStream_t s,
                              const float* d, const float* wp,
                              const int64_t* nb, const int32_t* rp,
-                             const int32_t* e, float* o, int rows, int n,
+                             const int32_t* e, T* o, int rows, int n,
                              int m, int c, int k, int tpr) {
   if (vec == 4)
-    weighted_sum_bwd_kernel<P, 4, MOMENTS><<<grid, kThreads, 0, s>>>(
+    weighted_sum_bwd_kernel<P, 4, MOMENTS, T><<<grid, kThreads, 0, s>>>(
         d, wp, nb, rp, e, o, rows, n, m, c, k, tpr);
   else if (vec == 2)
-    weighted_sum_bwd_kernel<P, 2, MOMENTS><<<grid, kThreads, 0, s>>>(
+    weighted_sum_bwd_kernel<P, 2, MOMENTS, T><<<grid, kThreads, 0, s>>>(
         d, wp, nb, rp, e, o, rows, n, m, c, k, tpr);
   else
-    weighted_sum_bwd_kernel<P, 1, MOMENTS><<<grid, kThreads, 0, s>>>(
+    weighted_sum_bwd_kernel<P, 1, MOMENTS, T><<<grid, kThreads, 0, s>>>(
         d, wp, nb, rp, e, o, rows, n, m, c, k, tpr);
 }
 
-// E's launch for weights (MOMENTS false, nbh unused) or positions.
-template <bool MOMENTS>
+// E's launch for weights (MOMENTS false, nbh unused) or positions; T is
+// dfeat's type.
+template <bool MOMENTS, typename T>
 int weighted_sum_bwd(const void* dm, const void* w, const void* nbh,
                      const void* rowptr, const void* ent, void* dfeat, int b,
                      int n, int m, int c, int k, int p, void* stream) {
   if (!bwd_sizes_ok(b, n, m, c, k) || p < (MOMENTS ? 2 : 1) || p > 4)
     return (int)cudaErrorInvalidValue;
   const int rows = b * m;
-  const int vec = vec_width(c, (uintptr_t)dm | (uintptr_t)dfeat, 0);
+  const int vec =
+      kBf16<T> ? vec_width(c, (uintptr_t)dm, 0, (uintptr_t)dfeat)
+               : vec_width(c, (uintptr_t)dm | (uintptr_t)dfeat, 0);
   const int tpr = threads_per_row(c / vec);
   const unsigned int grid = blocks_for(rows, tpr);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -709,7 +805,7 @@ int weighted_sum_bwd(const void* dm, const void* w, const void* nbh,
   const int64_t* nb = static_cast<const int64_t*>(nbh);
   const int32_t* rp = static_cast<const int32_t*>(rowptr);
   const int32_t* e = static_cast<const int32_t*>(ent);
-  float* o = static_cast<float*>(dfeat);
+  T* o = static_cast<T*>(dfeat);
   switch (p) {
     case 1:
       if constexpr (!MOMENTS)
@@ -732,17 +828,20 @@ int weighted_sum_bwd(const void* dm, const void* w, const void* nbh,
   return (int)cudaGetLastError();
 }
 
-// C's launch for weights (MOMENTS false) or positions.
-template <bool MOMENTS>
+// C's launch for weights (MOMENTS false) or positions; T is the features'
+// type.
+template <bool MOMENTS, typename T>
 int weighted_sum(const void* feat, const void* nbh, const void* w, void* out,
                  int b, int n, int m, int c, int k, int p, int vec, int lanes,
                  int passes, void* stream) {
   const RowPlan plan{vec, lanes, passes};
+  const bool fits =
+      kBf16<T> ? plan_ok(c, plan, (uintptr_t)out, 0, 0, (uintptr_t)feat)
+               : plan_ok(c, plan, (uintptr_t)feat | (uintptr_t)out, 0, 0);
   if (b < 1 || n < 1 || m < 1 || c < 1 || k < 1 || k > 64 ||
-      p < (MOMENTS ? 2 : 1) || p > 4 ||
-      !plan_ok(c, plan, (uintptr_t)feat | (uintptr_t)out, 0, 0))
+      p < (MOMENTS ? 2 : 1) || p > 4 || !fits)
     return (int)cudaErrorInvalidValue;
-  const WeightedSumArgs a{static_cast<const float*>(feat),
+  const WeightedSumArgs<T> a{static_cast<const T*>(feat),
                           static_cast<const int64_t*>(nbh),
                           static_cast<const float*>(w),
                           static_cast<float*>(out),
@@ -780,8 +879,8 @@ extern "C" int dh3d_weighted_sum(const void* feat, const void* nbh,
                                  const void* w, void* out, int b, int n,
                                  int m, int c, int k, int p, int vec,
                                  int lanes, int passes, void* stream) {
-  return weighted_sum<false>(feat, nbh, w, out, b, n, m, c, k, p, vec, lanes,
-                             passes, stream);
+  return weighted_sum<false, float>(feat, nbh, w, out, b, n, m, c, k, p, vec,
+                                    lanes, passes, stream);
 }
 
 // The same with the weights [1, pos[nbh[., k]] - pos[nbh[., 0]]] built from
@@ -791,8 +890,20 @@ extern "C" int dh3d_flex_moments(const void* feat, const void* nbh,
                                  const void* pos, void* out, int b, int n,
                                  int m, int c, int k, int p, int vec,
                                  int lanes, int passes, void* stream) {
-  return weighted_sum<true>(feat, nbh, pos, out, b, n, m, c, k, p, vec, lanes,
-                            passes, stream);
+  return weighted_sum<true, float>(feat, nbh, pos, out, b, n, m, c, k, p, vec,
+                                   lanes, passes, stream);
+}
+
+// The bf16 case: feat [b, m, c] bf16, pos f32 -> out [b, n, p * c] f32
+// with the deltas and the p = 0 moment rounded to bf16 (the header).  A
+// plan whose VEC bf16s do not fit feat's base is refused.
+extern "C" int dh3d_flex_moments_bf16(const void* feat, const void* nbh,
+                                      const void* pos, void* out, int b,
+                                      int n, int m, int c, int k, int p,
+                                      int vec, int lanes, int passes,
+                                      void* stream) {
+  return weighted_sum<true, __nv_bfloat16>(feat, nbh, pos, out, b, n, m, c, k,
+                                           p, vec, lanes, passes, stream);
 }
 
 // feat [b, m, c] f32, nbh [b, n, k] int64 in [0, m) -> val [b, n, c] f32
@@ -831,8 +942,8 @@ extern "C" int dh3d_weighted_sum_bwd(const void* dm, const void* w,
                                      const void* rowptr, const void* ent,
                                      void* dfeat, int b, int n, int m, int c,
                                      int k, int p, void* stream) {
-  return weighted_sum_bwd<false>(dm, w, nullptr, rowptr, ent, dfeat, b, n, m,
-                                 c, k, p, stream);
+  return weighted_sum_bwd<false, float>(dm, w, nullptr, rowptr, ent, dfeat, b,
+                                        n, m, c, k, p, stream);
 }
 
 // The transpose of dh3d_flex_moments with respect to feat: the same with
@@ -843,8 +954,20 @@ extern "C" int dh3d_flex_moments_bwd(const void* dm, const void* pos,
                                      const void* ent, void* dfeat, int b,
                                      int n, int m, int c, int k, int p,
                                      void* stream) {
-  return weighted_sum_bwd<true>(dm, pos, nbh, rowptr, ent, dfeat, b, n, m, c,
-                                k, p, stream);
+  return weighted_sum_bwd<true, float>(dm, pos, nbh, rowptr, ent, dfeat, b, n,
+                                       m, c, k, p, stream);
+}
+
+// The bf16 case: dm f32 with its p = 0 slice rounded to bf16, the weights
+// [1, bf16(delta)] -> dfeat [b, m, c] bf16, rounded once (the header).
+extern "C" int dh3d_flex_moments_bwd_bf16(const void* dm, const void* pos,
+                                          const void* nbh, const void* rowptr,
+                                          const void* ent, void* dfeat, int b,
+                                          int n, int m, int c, int k, int p,
+                                          void* stream) {
+  return weighted_sum_bwd<true, __nv_bfloat16>(dm, pos, nbh, rowptr, ent,
+                                               dfeat, b, n, m, c, k, p,
+                                               stream);
 }
 
 // dval [b, n, c] f32, slot [b, n, c] int8, rowptr [b, m + 1] int32,

@@ -185,16 +185,24 @@ WEIGHTED_SUM = Kernel("weighted_sum", "dh3d_weighted_sum",
                       [_P, _P, _P, _P] + [_I] * 9)
 FLEX_MOMENTS = Kernel("flex_moments", "dh3d_flex_moments",
                       [_P, _P, _P, _P] + [_I] * 9)
+# C's bf16 case: bf16 features (the bf16 compute_dtype), f32 moments
+FLEX_MOMENTS_BF16 = Kernel("flex_moments_bf16", "dh3d_flex_moments_bf16",
+                           [_P, _P, _P, _P] + [_I] * 9)
 NEIGHBOR_MAX = Kernel("neighbor_max", "dh3d_neighbor_max",
                       [_P, _P, _P, _P, _P] + [_I] * 8)
 WEIGHTED_SUM_BWD = Kernel("weighted_sum_backward", "dh3d_weighted_sum_bwd",
                           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I])
 FLEX_MOMENTS_BWD = Kernel("flex_moments_backward", "dh3d_flex_moments_bwd",
                           [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I])
+# E's bf16 case: the bf16 feature gradient of C's bf16 case
+FLEX_MOMENTS_BWD_BF16 = Kernel(
+    "flex_moments_backward_bf16", "dh3d_flex_moments_bwd_bf16",
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I])
 NEIGHBOR_MAX_BWD = Kernel("neighbor_max_backward", "dh3d_neighbor_max_bwd",
                           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I])
 KERNELS = (KNN, KNN_TOPK, KNN_WINDOW, FPS, WEIGHTED_SUM, FLEX_MOMENTS,
-           NEIGHBOR_MAX, WEIGHTED_SUM_BWD, FLEX_MOMENTS_BWD, NEIGHBOR_MAX_BWD)
+           FLEX_MOMENTS_BF16, NEIGHBOR_MAX, WEIGHTED_SUM_BWD,
+           FLEX_MOMENTS_BWD, FLEX_MOMENTS_BWD_BF16, NEIGHBOR_MAX_BWD)
 
 
 def reset_counts() -> None:

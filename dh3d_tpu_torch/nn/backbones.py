@@ -10,6 +10,15 @@ approximate mode (`exact=False`, the config's `morton_exact=False`), the
 neighbour sets: the kNN and the 3-NN of a level wider than 2048 points
 search a band of the Morton order (`ops.knn_window`), as the JAX blocks
 route them.
+
+`dtype` (None or bf16, the model's compute dtype) reaches exactly the
+modules the JAX blocks give it (`dh3d_tpu/nn/backbones.py:140,211,256-281,
+299-361`): every FlexConvBN of stages 1 and 2 and of the global stage, the
+Conv1x1s `before_stage2_conv1d`, `local_stage1_shortcut` and stage 2's
+`concat_conv1d`, and the `detec_conv*` of the detection and attention
+blocks.  initconv, the SE squeeze convs, `final_fc`, the logit heads, the
+conv1d global backbone, NetVLAD and context gating stay f32, as do the
+pools, the interpolation and every neighbour search.
 """
 
 from __future__ import annotations
@@ -59,7 +68,8 @@ class FlexConvDilate(nn.Module):
 
     def __init__(self, din: int, dilate: int, knn: int,
                  outdims: Sequence[int], concat: bool, add_se: str,
-                 sorted_order: bool = False, exact: bool = True):
+                 sorted_order: bool = False, exact: bool = True,
+                 dtype=None):
         super().__init__()
         if add_se not in ("max_pool", "avg_pool", ""):
             raise ValueError(f"add_se={add_se!r}")
@@ -69,10 +79,12 @@ class FlexConvDilate(nn.Module):
         dims = [din, *outdims]
         self.n_convs = len(outdims)
         for i in range(self.n_convs):
-            self.add_module(f"flexconv_{i}", FlexConvBN(dims[i], dims[i + 1]))
+            self.add_module(f"flexconv_{i}",
+                            FlexConvBN(dims[i], dims[i + 1], dtype))
         self.se = SEResBottleneck(outdims[-1]) if add_se else None
         if concat:
-            self.concat_conv1d = Conv1x1(outdims[-1] + din, outdims[-1])
+            self.concat_conv1d = Conv1x1(outdims[-1] + din, outdims[-1],
+                                         dtype=dtype)
 
     def forward(self, xyz, feat, knn=None, level_cache=None):
         lc = level_cache or {}
@@ -127,17 +139,20 @@ class BackboneLocalDilate(nn.Module):
     (points, feat, stage 2's level cache)."""
 
     def __init__(self, featdim: int = 128, dilate2: int = 8,
-                 sorted_order: bool = False, exact: bool = True):
+                 sorted_order: bool = False, exact: bool = True,
+                 dtype=None):
         super().__init__()
         self.initconv = ConvPointsetBN(3, 32)
         self.stage1 = FlexConvDilate(32, dilate=1, knn=8, outdims=(64, 64),
-                                     concat=False, add_se="max_pool")
-        self.before_stage2_conv1d = Conv1x1(64, 64)
+                                     concat=False, add_se="max_pool",
+                                     dtype=dtype)
+        self.before_stage2_conv1d = Conv1x1(64, 64, dtype=dtype)
         self.stage2 = FlexConvDilate(64, dilate=dilate2, knn=8,
                                      outdims=(128, 128), concat=True,
                                      add_se="max_pool",
-                                     sorted_order=sorted_order, exact=exact)
-        self.local_stage1_shortcut = Conv1x1(64, 128)
+                                     sorted_order=sorted_order, exact=exact,
+                                     dtype=dtype)
+        self.local_stage1_shortcut = Conv1x1(64, 128, dtype=dtype)
         self.final_fc = Conv1x1(128, featdim) if featdim < 128 else None
 
     def forward(self, points, knn_ind):
@@ -158,12 +173,13 @@ class DetectionBlock(nn.Module):
     1024 -> one logit (bias initialised to 1/8, `backbones.py:308-312`)
     -> sigmoid (or softplus) keypoint score."""
 
-    def __init__(self, din: int, use_softplus: bool = False):
+    def __init__(self, din: int, use_softplus: bool = False, dtype=None):
         super().__init__()
         self.use_softplus = use_softplus
         dims = [din, 128, 256, 1024]
         for i in range(3):
-            self.add_module(f"detec_conv{i}", Conv1x1(dims[i], dims[i + 1]))
+            self.add_module(f"detec_conv{i}",
+                            Conv1x1(dims[i], dims[i + 1], dtype=dtype))
         self.detec_conv_fc = dense(1024, 1, bias=1.0 / 8)
 
     def forward(self, features):
@@ -179,12 +195,13 @@ class DetectionBlock(nn.Module):
 class GlobalAttBlock(nn.Module):
     """globalatt_block (`core/backbones.py:156-173`)."""
 
-    def __init__(self, din: int):
+    def __init__(self, din: int, dtype=None):
         super().__init__()
         dims = [din, 256, 1024] if din > 256 else [din, 1024]
         self.n_convs = len(dims) - 1
         for i in range(self.n_convs):
-            self.add_module(f"detec_conv{i}", Conv1x1(dims[i], dims[i + 1]))
+            self.add_module(f"detec_conv{i}",
+                            Conv1x1(dims[i], dims[i + 1], dtype=dtype))
         self.detec_conv_fc = dense(1024, 1)
 
     def forward(self, features):
@@ -200,13 +217,13 @@ class GlobalBeforeAssemble(nn.Module):
 
     def __init__(self, din: int, gl_dilate: int, knn_num: int,
                  gl_dims: Sequence[int], concat_xyz: bool,
-                 sorted_order: bool, exact: bool = True):
+                 sorted_order: bool, exact: bool = True, dtype=None):
         super().__init__()
         self.concat_xyz = concat_xyz
         self.global_before_assemble = FlexConvDilate(
             din + 3 if concat_xyz else din, dilate=gl_dilate, knn=knn_num,
             outdims=gl_dims, concat=False, add_se="",
-            sorted_order=sorted_order, exact=exact)
+            sorted_order=sorted_order, exact=exact, dtype=dtype)
 
     def forward(self, points, localdesc, level_cache=None):
         if self.concat_xyz:

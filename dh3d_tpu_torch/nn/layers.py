@@ -1,4 +1,4 @@
-"""Layers of the DH3D model, f32.
+"""Layers of the DH3D model.
 
 Counterpart of `dh3d_tpu/nn/layers.py` (reference: `core/layers.py`,
 `core/tf_utils.py`).  Parameter names and layouts follow the Flax tree so
@@ -12,6 +12,14 @@ input width.  Parameters start as Flax's initialisers draw them (other
 random numbers, the same distributions): `he_normal` Dense kernels and zero
 Dense biases (`layers.py:185-188`), `glorot_uniform` flex and pointset
 thetas (`layers.py:76-83,139-141`), zero position and feature biases.
+
+Mixed precision (`dtype=torch.bfloat16`, the model's bf16 compute_dtype)
+follows the Flax modules: parameters stay f32 and are cast at use.
+`FlexConv` casts its input and its position weights to bf16 and returns
+f32 (`ops.flex_conv`); `Conv1x1` is Flax's `Dense(dtype=bf16)`, whose
+product is rounded to bf16 and whose bias is then added in bf16 (a second
+rounding), so the output is bf16; `BatchNorm` takes it up to f32 first, as
+Flax's does (f32 statistics, f32 output).
 """
 
 from __future__ import annotations
@@ -86,6 +94,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x):
+        x = x.float()  # a bf16 input normalises in f32, as in Flax
         if self.training:
             dims = tuple(range(x.dim() - 1))
             mean = x.mean(dims)
@@ -118,27 +127,34 @@ def frozen_statistics(module: nn.Module):
 
 
 class FlexConv(nn.Module):
-    """Flex convolution layer (`core/layers.py:178-339`) on 3-D positions."""
+    """Flex convolution layer (`core/layers.py:178-339`) on 3-D positions.
+    `dtype` (None or bf16): the compute dtype of the features and the
+    position weights (`dh3d_tpu/nn/layers.py:84-95`); positions stay f32,
+    the output is f32 and `feature_bias` is added in f32."""
 
-    def __init__(self, din: int, features: int):
+    def __init__(self, din: int, features: int, dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.position_theta = glorot_uniform_param(
             3, din, features, fan_in=3 * din, fan_out=features)
         self.position_bias = nn.Parameter(torch.zeros(din, features))
         self.feature_bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, feat, pos, nbh, inverse=None):
-        return ops.flex_conv(feat, pos, nbh, self.position_theta,
-                             self.position_bias, inverse) + self.feature_bias
+        theta, bias = self.position_theta, self.position_bias
+        if self.dtype is not None:
+            feat, theta, bias = (t.to(self.dtype) for t in (feat, theta, bias))
+        return ops.flex_conv(feat, pos, nbh, theta, bias,
+                             inverse) + self.feature_bias
 
 
 class FlexConvBN(nn.Module):
     """flexconv_withBatchnorm (`core/tf_utils.py:48-64`):
-    flexconv -> BN -> relu."""
+    flexconv -> BN -> relu; `dtype` is the flex conv's."""
 
-    def __init__(self, din: int, features: int):
+    def __init__(self, din: int, features: int, dtype=None):
         super().__init__()
-        self.flexconv = FlexConv(din, features)
+        self.flexconv = FlexConv(din, features, dtype)
         self.norm = BatchNorm(features)
 
     def forward(self, feat, pos, nbh, inverse=None):
@@ -172,17 +188,26 @@ class ConvPointsetBN(nn.Module):
 
 class Conv1x1(nn.Module):
     """feature_conv1d_1 (`core/tf_utils.py:99-109`): pointwise Dense, then
-    BN and the activation (BNReLU by default)."""
+    BN and the activation (BNReLU by default).  `dtype` (None or bf16): the
+    Dense's compute dtype, Flax's `Dense(dtype=...)`: input, kernel and
+    bias cast to it, the product rounded to it, then the bias added in it
+    (`dh3d_tpu/nn/layers.py:172-197`)."""
 
     def __init__(self, din: int, features: int, bn: bool = True,
-                 act: Callable = torch.relu):
+                 act: Callable = torch.relu, dtype=None):
         super().__init__()
         self.dense = dense(din, features)
         self.norm = BatchNorm(features) if bn else None
         self.act = act
+        self.dtype = dtype
 
     def forward(self, x):
-        x = self.dense(x)
+        if self.dtype is None:
+            x = self.dense(x)
+        else:  # two roundings, as Flax's: no fused addmm
+            dt = self.dtype
+            x = (nn.functional.linear(x.to(dt), self.dense.weight.to(dt))
+                 + self.dense.bias.to(dt))
         if self.norm is not None:
             x = self.norm(x)
         return self.act(x)

@@ -2,7 +2,9 @@
 attention-weighted NetVLAD global descriptor.
 
 Counterpart of `dh3d_tpu/nn/model.py:24-276` (reference
-`core/model.py:33-255`), f32 only.  Neighbour sets are exact
+`core/model.py:33-255`).  `compute_dtype` is "float32" or "bfloat16"
+(`compute_dtype`; the modules it reaches are listed in `nn/backbones.py`;
+parameters, positions and every output stay f32).  Neighbour sets are exact
 (`morton_exact`, the default) or, with `morton_exact=False`, the legacy
 approximate mode's Morton bands (`ops.knn_window`): the full-resolution
 kNN of a Morton-ordered cloud of N >= 1024, N % 256 == 0, in a band of 512
@@ -44,6 +46,21 @@ def frozen_groups(cfg) -> set:
             for name in names}
 
 
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(cfg):
+    """The compute dtype `cfg.compute_dtype` names for the layers that
+    take one: None for "float32" (or unset), torch.bfloat16 for
+    "bfloat16"; NotImplementedError for any other (the JAX package would
+    run float16 throughout, which the port does not)."""
+    name = cfg.compute_dtype or "float32"
+    if name not in COMPUTE_DTYPES:
+        raise NotImplementedError(
+            f"compute_dtype={name!r}: the port runs float32 and bfloat16")
+    return COMPUTE_DTYPES[name]
+
+
 def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x [B, N, ...], idx [B, M] -> x[b, idx[b]]  [B, M, ...]."""
     b = torch.arange(x.shape[0], device=x.device)[:, None]
@@ -59,9 +76,7 @@ class DH3D(nn.Module):
     def __init__(self, cfg: dotdict):
         super().__init__()
         self.cfg = cfg
-        if (cfg.compute_dtype or "float32") != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r}: the port runs f32 only")
+        dt = compute_dtype(cfg)
         gb = cfg.global_backbone or "global_before_assemble"
         if gb not in ("global_before_assemble",
                       "global_before_assemble_conv1d"):
@@ -76,10 +91,10 @@ class DH3D(nn.Module):
             and cfg.share_level_cache is not False)
         self.local_backbone = backbones.BackboneLocalDilate(
             featdim=featdim, dilate2=cfg.dilate or 8,
-            sorted_order=sorted_order, exact=self.exact)
+            sorted_order=sorted_order, exact=self.exact, dtype=dt)
         if cfg.detection:
             self.detection_block = backbones.DetectionBlock(
-                local_dim, use_softplus=bool(cfg.use_softplus))
+                local_dim, use_softplus=bool(cfg.use_softplus), dtype=dt)
         if cfg.extract_global:
             gl_dims = tuple(cfg.gl_dims or (256,))
             if gb == "global_before_assemble":
@@ -87,12 +102,12 @@ class DH3D(nn.Module):
                     local_dim, gl_dilate=cfg.gl_dilate or 8,
                     knn_num=cfg.knn_num, gl_dims=gl_dims,
                     concat_xyz=bool(cfg.concat_xyz),
-                    sorted_order=sorted_order, exact=self.exact)
+                    sorted_order=sorted_order, exact=self.exact, dtype=dt)
             else:
                 self.global_backbone = backbones.GlobalBeforeAssembleConv1d(
                     local_dim, gl_dims=gl_dims,
                     concat_xyz=bool(cfg.concat_xyz))
-            self.globalatt = backbones.GlobalAttBlock(gl_dims[-1])
+            self.globalatt = backbones.GlobalAttBlock(gl_dims[-1], dtype=dt)
             self.global_assemble = backbones.NetVLAD(
                 gl_dims[-1], add_batch_norm=bool(cfg.add_batch_norm))
 

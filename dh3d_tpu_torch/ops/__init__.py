@@ -55,6 +55,7 @@ from dh3d_tpu_torch.ops.neighborhood import (
     NeighborInverse,
     flex_moments,
     flex_moments_backward,
+    flex_moments_backward_plain,
     flex_moments_plain,
     flex_weights,
     inverse_neighbors,
@@ -81,7 +82,8 @@ from dh3d_tpu_torch.ops.sampling import (
 __all__ = [
     "NeighborInverse", "conv_pointset", "farthest_point_sample", "flex_avg",
     "flex_conv", "flex_deconv",
-    "flex_moments", "flex_moments_backward", "flex_moments_plain", "flex_pool",
+    "flex_moments", "flex_moments_backward",
+    "flex_moments_backward_plain", "flex_moments_plain", "flex_pool",
     "flex_weights", "fps_plain", "fps_plan", "gather_neighbors", "gather_point",
     "group_point", "inverse_distance_weights", "inverse_neighbors", "knn",
     "knn_bruteforce", "knn_bruteforce_pairwise", "knn_plain", "knn_point",

@@ -39,11 +39,13 @@ def flex_conv(features, positions, nbh, theta, bias, inverse=None):
 
     features [B, N, Din], positions [B, N, Dp], nbh [B, N, K] int64 with
     the centre at k = 0, theta [Dp, Din, Dout], bias [Din, Dout]
-    -> [B, N, Dout]."""
+    -> [B, N, Dout] f32.  Mixed precision as in the JAX function: bf16
+    features take the bf16 moments (f32, `flex_moments`), and the product
+    with the weights (bf16-rounded by the caller) runs in f32."""
     Dp, Din, Dout = theta.shape
     m = flex_moments(features, positions, nbh, inverse)
     w = torch.cat([bias[None], theta], dim=0).reshape((1 + Dp) * Din, Dout)
-    return m @ w
+    return m @ w.to(m.dtype)
 
 
 def flex_avg(features, nbh, inverse=None):

@@ -41,6 +41,18 @@ They replace the Pallas kernels of `dh3d_tpu/ops/pallas/banded_pallas.py`:
 (all: indices here may be anything in [0, M)).  Features and weights are
 f32, indices int64; N (rows of nbh) and M (rows of features) may differ.
 
+`flex_moments` also takes bf16 features, the model's bf16 compute_dtype:
+the function `_flex_moments` of `dh3d_tpu/ops/flex.py` computes on bf16
+features on the CPU, with its rounding points: delta = pos[nk] - pos[n0]
+in f32, rounded to bf16; the p = 0 moment (`jnp.sum` of bf16: an f32 sum
+rounded once) rounded to bf16; the other moments f32 sums of exact
+bf16 x bf16 products; the output f32.  Its backward rounds the p = 0 slice
+of the cotangent to bf16 (the cast of m0), sums in f32 and rounds the
+feature gradient to bf16 once (the JAX gather path rounds it at every add
+of its scatter).  On the card these are the bf16 cases of kernels C and E
+(`FLEX_MOMENTS_BF16`, `FLEX_MOMENTS_BWD_BF16`, counted apart from the f32
+cases); any other feature dtype is refused.
+
 CPU tensors take the plain versions, forward and backward, through the same
 Functions; CUDA tensors launch the kernels.
 """
@@ -162,7 +174,9 @@ def _plan(plan, C, K, features):
     allows (the kernels' other vector accesses are to fresh outputs)."""
     if plan is not None:
         return tuple(plan)
-    vec_max = next(v for v in (4, 2, 1) if features.data_ptr() % (4 * v) == 0)
+    size = features.element_size()
+    vec_max = next(v for v in (4, 2, 1)
+                   if features.data_ptr() % (size * v) == 0)
     return row_plan(C, K, vec_max)
 
 
@@ -182,10 +196,50 @@ def weighted_sum_plain(features, nbh, weights):
     return torch.einsum("bnkp,bnkc->bnpc", weights, f_k).reshape(B, N, -1)
 
 
+FEATURE_DTYPES = (torch.float32, torch.bfloat16)  # of flex_moments
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """f32 x rounded to the nearest bf16 (ties to even), as f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _bf16_weights(positions, nbh):
+    """`flex_weights` with the deltas rounded to bf16: the weights of the
+    moments of bf16 features."""
+    w = flex_weights(positions, nbh)
+    return torch.cat([w[..., :1], round_bf16(w[..., 1:])], dim=-1)
+
+
 def flex_moments_plain(features, positions, nbh):
     """Plain PyTorch `flex_moments`: kernel C's plain version on the
-    weights `flex_weights` builds."""
-    return weighted_sum_plain(features, nbh, flex_weights(positions, nbh))
+    weights `flex_weights` builds.  bf16 features: the bf16 rounding points
+    (the module docstring), f32 output."""
+    if features.dtype != torch.bfloat16:
+        return weighted_sum_plain(features, nbh, flex_weights(positions, nbh))
+    B, N, K = nbh.shape
+    C = features.shape[-1]
+    m = weighted_sum_plain(features.float(), nbh,
+                           _bf16_weights(positions, nbh)).view(B, N, -1, C)
+    return torch.cat([round_bf16(m[:, :, :1]), m[:, :, 1:]],
+                     dim=2).view(B, N, -1)
+
+
+def flex_moments_backward_plain(dm, positions, nbh, M,
+                                dtype=torch.float32):
+    """Plain PyTorch `flex_moments_backward`: kernel E's plain version on
+    the weights `flex_weights` builds.  dtype bf16 (the features'): the p = 0
+    slice of dm and the deltas rounded to bf16, the sum in f32 rounded once
+    to bf16."""
+    if dtype != torch.bfloat16:
+        return weighted_sum_backward_plain(
+            dm, nbh, flex_weights(positions, nbh), M)
+    B, N, _ = dm.shape
+    d = dm.view(B, N, 1 + positions.shape[-1], -1)
+    d = torch.cat([round_bf16(d[:, :, :1]), d[:, :, 1:]], dim=2)
+    return weighted_sum_backward_plain(
+        d.view(B, N, -1), nbh, _bf16_weights(positions, nbh),
+        M).to(torch.bfloat16)
 
 
 def weighted_sum_backward_plain(dm, nbh, weights, M):
@@ -211,7 +265,9 @@ def _weighted_sum_forward(features, nbh, weights, plan=None):
 def _flex_moments_forward(features, positions, nbh, plan=None):
     if not kernels.on_cuda(features, positions, nbh):
         return flex_moments_plain(features, positions, nbh)
-    return _launch_c(kernels.FLEX_MOMENTS, features, nbh, positions,
+    kernel = (kernels.FLEX_MOMENTS_BF16 if features.dtype == torch.bfloat16
+              else kernels.FLEX_MOMENTS)
+    return _launch_c(kernel, features, nbh, positions,
                      1 + positions.shape[-1], plan)
 
 
@@ -313,15 +369,22 @@ def weighted_sum(features: torch.Tensor, nbh: torch.Tensor,
 
 def flex_moments_backward(dm: torch.Tensor, positions: torch.Tensor,
                           nbh: torch.Tensor,
-                          inverse: NeighborInverse | None = None
+                          inverse: NeighborInverse | None = None,
+                          dtype: torch.dtype = torch.float32
                           ) -> torch.Tensor:
     """The transpose of `flex_moments` with respect to the features:
     dm [B, N, (1 + Dp)*C] f32, positions [B, M, Dp] f32, nbh [B, N, K]
-    int64 in [0, M), contiguous -> dfeat [B, M, C] f32; the bits of
-    `weighted_sum_backward` on `flex_weights(positions, nbh)`.
+    int64 in [0, M), contiguous -> dfeat [B, M, C] of `dtype`, the
+    features' dtype.  f32: the bits of `weighted_sum_backward` on
+    `flex_weights(positions, nbh)`.  bf16: the transpose of the bf16
+    moments (the module docstring), rounded to bf16 once.
 
-    CPU tensors take the plain version; CUDA tensors launch kernel E,
-    which builds each entry's weights from the positions."""
+    CPU tensors take the plain version; CUDA tensors launch kernel E (its
+    bf16 case for bf16), which builds each entry's weights from the
+    positions."""
+    if dtype not in FEATURE_DTYPES:
+        raise ValueError(f"flex_moments_backward: dtype {dtype}, expected "
+                         "float32 or bfloat16")
     B, N, K = nbh.shape
     kernels.check(nbh, "nbh", torch.int64, (B, N, K))
     kernels.check(positions, "positions", torch.float32, (B, None, None))
@@ -332,20 +395,21 @@ def flex_moments_backward(dm: torch.Tensor, positions: torch.Tensor,
                          f"P={P} (2..{MAX_P}), K={K} (<= {MAX_K})")
     _check_inverse(inverse, nbh, M, "flex_moments_backward")
     return _flex_moments_backward(dm, positions, nbh,
-                                  inverse or NeighborInverse(nbh, M))
+                                  inverse or NeighborInverse(nbh, M), dtype)
 
 
-def _flex_moments_backward(dm, positions, nbh, inverse):
+def _flex_moments_backward(dm, positions, nbh, inverse, dtype=torch.float32):
     M = inverse.m
     if not kernels.on_cuda(dm, positions, nbh):
-        return weighted_sum_backward_plain(
-            dm, nbh, flex_weights(positions, nbh), M)
+        return flex_moments_backward_plain(dm, positions, nbh, M, dtype)
     B, N, K = nbh.shape
     P = 1 + positions.shape[-1]
     C = dm.shape[-1] // P
     rowptr, entries = inverse.get()
-    out = torch.empty(B, M, C, dtype=torch.float32, device=dm.device)
-    kernels.FLEX_MOMENTS_BWD.launch(
+    out = torch.empty(B, M, C, dtype=dtype, device=dm.device)
+    kernel = (kernels.FLEX_MOMENTS_BWD_BF16 if dtype == torch.bfloat16
+              else kernels.FLEX_MOMENTS_BWD)
+    kernel.launch(
         dm.device, dm.data_ptr(), positions.data_ptr(), nbh.data_ptr(),
         rowptr.data_ptr(), entries.data_ptr(), out.data_ptr(), B, N, M, C,
         K, P)
@@ -354,11 +418,12 @@ def _flex_moments_backward(dm, positions, nbh, inverse):
 
 class FlexMoments(torch.autograd.Function):
     """Kernel C on positions forward, kernel E on positions backward (plain
-    versions on the CPU)."""
+    versions on the CPU); the feature gradient in the features' dtype."""
 
     @staticmethod
     def forward(ctx, features, positions, nbh, inverse=None, plan=None):
         ctx.inverse = inverse or NeighborInverse(nbh, features.shape[1])
+        ctx.dtype = features.dtype
         ctx.save_for_backward(nbh, positions)
         return _flex_moments_forward(features, positions, nbh, plan)
 
@@ -368,23 +433,29 @@ class FlexMoments(torch.autograd.Function):
             return (None,) * 5
         nbh, positions = ctx.saved_tensors
         return (_flex_moments_backward(dout.contiguous(), positions, nbh,
-                                       ctx.inverse),
+                                       ctx.inverse, ctx.dtype),
                 None, None, None, None)
 
 
 def flex_moments(features: torch.Tensor, positions: torch.Tensor,
                  nbh: torch.Tensor, inverse: NeighborInverse | None = None,
                  plan: tuple[int, int, int] | None = None) -> torch.Tensor:
-    """The flex-conv moments: features [B, M, C] f32, positions [B, M, Dp]
-    f32 (1 <= Dp <= 3), nbh [B, N, K] int64 in [0, M) with the centre at
-    k = 0 (K <= 64), all contiguous -> [B, N, (1 + Dp)*C] f32, p-major:
-    `weighted_sum(features, nbh, flex_weights(positions, nbh))` bit for bit,
-    without the weight tensor.  Differentiable in `features`; `inverse`
-    and `plan` as in `weighted_sum`.
+    """The flex-conv moments: features [B, M, C] f32 or bf16, positions
+    [B, M, Dp] f32 (1 <= Dp <= 3), nbh [B, N, K] int64 in [0, M) with the
+    centre at k = 0 (K <= 64), all contiguous -> [B, N, (1 + Dp)*C] f32,
+    p-major.  f32: `weighted_sum(features, nbh, flex_weights(positions,
+    nbh))` bit for bit, without the weight tensor.  bf16: the moments of the
+    JAX function on bf16 features (the module docstring); the gradient is
+    bf16.  Any other dtype raises ValueError.  Differentiable in
+    `features`; `inverse` and `plan` as in `weighted_sum`.
 
-    CPU tensors take the plain version; CUDA tensors launch kernel C, which
-    builds the weights from the positions (and kernel E in the backward)."""
-    kernels.check(features, "features", torch.float32, (None, None, None))
+    CPU tensors take the plain version; CUDA tensors launch kernel C (its
+    bf16 case for bf16), which builds the weights from the positions (and
+    kernel E in the backward)."""
+    if features.dtype not in FEATURE_DTYPES:
+        raise ValueError(f"flex_moments: features dtype {features.dtype}, "
+                         "expected float32 or bfloat16")
+    kernels.check(features, "features", features.dtype, (None, None, None))
     B, M = features.shape[:2]
     kernels.check(positions, "positions", torch.float32, (B, M, None))
     kernels.check(nbh, "nbh", torch.int64, (B, None, None))

@@ -43,7 +43,7 @@ from dh3d_tpu_torch.data.pairgen import draw_local_pairs, local_pairs
 from dh3d_tpu_torch.losses import compute_total_loss
 from dh3d_tpu_torch.nn.convert import (load_flax, load_npz,
                                        warm_start_state_dict)
-from dh3d_tpu_torch.nn.model import DH3D, frozen_groups
+from dh3d_tpu_torch.nn.model import DH3D, compute_dtype, frozen_groups
 
 # config keys of the JAX trainer that this port does not run yet (the
 # parallel path)
@@ -56,9 +56,7 @@ def check_config(cfg) -> None:
     for key in _UNPORTED:
         if cfg.get(key):
             raise NotImplementedError(f"{key}={cfg.get(key)!r} is not ported")
-    if (cfg.compute_dtype or "float32") != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r}: the port trains in f32")
+    compute_dtype(cfg)  # float32 or bfloat16; parameters and Adam stay f32
 
 
 def lr_schedule(cfg) -> Callable[[int], float]:

@@ -1015,3 +1015,130 @@ def test_legacy_forward_on_card_launches_h_and_matches_cpu(device):
     assert torch.equal(card["knn_indices"], cpu["knn_indices"])
     for key in ("local_desc", "attention", "global_desc"):
         assert (card[key] - cpu[key]).abs().max().item() <= 1e-4, key
+
+
+# ------------------ the bf16 cases of kernels C and E ------------------
+
+BF16_STEP = 2.0 ** -7  # one bf16 step, relative, at most
+
+
+def _bf16_close(a, ref, rel=1e-5):
+    """Within one bf16 step of each value plus f32 rounding of the
+    tensor's scale: the kernels sum in another order than the plain
+    versions, so an f32 sum that differs in its last bits may round to
+    the neighbouring bf16."""
+    a, ref = a.float(), ref.float()
+    err = (a - ref).abs()
+    assert (err <= BF16_STEP * ref.abs() + rel * ref.abs().max()).all(), \
+        err.max().item()
+
+
+# row 7's and row 10's shapes of PERF.md §6: (C, level)
+BF16_SHAPES = [(64, "N"), (32, "N"), (64, "M"), (128, "M")]
+
+
+@pytest.mark.parametrize("C,level", BF16_SHAPES)
+def test_flex_moments_bf16_at_path_shapes(train_level, C, level):
+    """Kernel C's bf16 case at the forward's shapes, every plan: the m0
+    slice within one bf16 step of the plain version's (`_bf16_close`), the
+    other moments within 1e-5 (f32 sums of exact products); the same bits
+    at every plan and on a second run; one launch of the bf16 case a
+    call, none of the f32 case."""
+    idx, _, keys = train_level[level]
+    B, rows, k = idx.shape
+    g = torch.Generator().manual_seed(C)
+    pos = (torch.randn(B, keys, 3, generator=g) * 30).to(idx.device)
+    feat = torch.randn(B, keys, C, generator=g).to(idx.device).to(
+        torch.bfloat16)
+    ref = T.flex_moments_plain(feat, pos, idx).view(B, rows, 4, C)
+    before = kernels.FLEX_MOMENTS.launches
+    first = _counted(kernels.FLEX_MOMENTS_BF16, T.flex_moments, feat, pos,
+                     idx)
+    assert first.dtype == torch.float32
+    out = first.view(B, rows, 4, C)
+    _bf16_close(out[:, :, 0], ref[:, :, 0])
+    _close(out[:, :, 1:], ref[:, :, 1:])
+    assert torch.equal(out[:, :, 0], out[:, :, 0].bfloat16().float())
+    for plan in row_plans(C, k):
+        got = _counted(kernels.FLEX_MOMENTS_BF16, T.flex_moments, feat, pos,
+                       idx, plan=plan)
+        assert torch.equal(got, first), plan
+    assert kernels.FLEX_MOMENTS.launches == before
+
+
+@pytest.mark.parametrize("C,level", BF16_SHAPES)
+def test_flex_moments_backward_bf16_at_path_shapes(train_level, C, level):
+    """Kernel E's bf16 case at the train step's shapes: bf16 out, within
+    one bf16 step of the plain version's (f32 sums in another order, then
+    one rounding); the same bits with the inverse shared and built in the
+    call, and through autograd."""
+    idx, _, keys = train_level[level]
+    B, rows, _ = idx.shape
+    g = torch.Generator().manual_seed(100 + C)
+    pos = (torch.randn(B, keys, 3, generator=g) * 30).to(idx.device)
+    dm = torch.randn(B, rows, 4 * C, generator=g).to(idx.device)
+    inv = T.NeighborInverse(idx, keys)
+    shared = _counted(kernels.FLEX_MOMENTS_BWD_BF16, T.flex_moments_backward,
+                      dm, pos, idx, inv, torch.bfloat16)
+    assert shared.dtype == torch.bfloat16
+    _bf16_close(shared, T.flex_moments_backward_plain(dm, pos, idx, keys,
+                                                      torch.bfloat16))
+    assert torch.equal(shared, T.flex_moments_backward(
+        dm, pos, idx, dtype=torch.bfloat16))
+    feat = torch.zeros(B, keys, C, dtype=torch.bfloat16, device=idx.device,
+                       requires_grad=True)
+    T.flex_moments(feat, pos, idx, inv).backward(dm)
+    assert torch.equal(feat.grad, shared)
+
+
+def test_flex_moments_bf16_misaligned_and_refused(device):
+    """bf16 features whose base is 2 bytes off: the default plan falls to
+    one channel a thread and gives the aligned bits; a forced VEC of 2 or
+    4 is refused (ValueError, no launch).  f16 features never reach a
+    kernel."""
+    g = torch.Generator().manual_seed(21)
+    feat = torch.randn(B, M, 64, generator=g).to(device).to(torch.bfloat16)
+    pos = torch.randn(B, M, 3, generator=g).to(device)
+    nbh = torch.randint(0, M, (B, N, 8), generator=g).to(device)
+    buf = torch.empty(feat.numel() + 1, dtype=feat.dtype, device=device)
+    off = buf[1:].view(feat.shape)
+    off.copy_(feat)
+    assert off.data_ptr() % 4 == 2
+    assert torch.equal(T.flex_moments(off, pos, nbh),
+                       T.flex_moments(feat, pos, nbh))
+    before = kernels.counts()
+    for plan in ((4, 16, 1), (2, 32, 1)):
+        with pytest.raises(ValueError, match="invalid argument"):
+            T.flex_moments(off, pos, nbh, plan=plan)
+    with pytest.raises(ValueError, match="dtype"):
+        T.flex_moments(feat.half(), pos, nbh)
+    assert kernels.counts() == before
+
+
+def test_bf16_forward_on_card_launches_the_bf16_cases(device):
+    """The main-path model in bf16 at [2, 2048]: the bf16 case of C five
+    times (every flex conv) and the f32 case never; card against CPU
+    within the bf16 limits of `chip_smoke.py` phase 16 (c)."""
+    from dh3d_tpu_torch.entry import entry_config, entry_points, entry_weights
+    from dh3d_tpu_torch.eval import make_forward
+    from dh3d_tpu_torch.nn import DH3D, load_flax
+
+    outs = []
+    for dev in (device, torch.device("cpu")):
+        cfg = entry_config()
+        cfg.compute_dtype = "bfloat16"
+        model = DH3D(cfg).to(dev)
+        load_flax(model, entry_weights())
+        pts = entry_points(2, 2048, seed=3)
+        kernels.reset_counts()
+        outs.append({k: v.cpu() for k, v in make_forward(cfg, model)(
+            pts).items()})
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            counts = kernels.counts()
+            assert counts["flex_moments_bf16"] == 5, counts
+            assert counts["flex_moments"] == 0, counts
+    card, cpu = outs
+    assert torch.equal(card["knn_indices"], cpu["knn_indices"])
+    for key, top in (("local_desc", 0.2), ("global_desc", 2e-4)):
+        assert (card[key] - cpu[key]).abs().max().item() <= top, key

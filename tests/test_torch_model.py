@@ -222,13 +222,17 @@ def test_port_imports_no_jax():
 
 
 def test_unported_options_raise():
-    """The model still refuses the bf16 compute_dtype; the legacy
-    morton_exact=False mode runs since it was ported
-    (`tests/test_torch_window.py` holds it to the JAX model)."""
+    """The model refuses a compute_dtype it does not run (float16); the
+    bf16 compute_dtype runs since it was ported
+    (`tests/test_torch_bf16.py` holds it to the JAX model), and so does
+    the legacy morton_exact=False mode (`tests/test_torch_window.py`)."""
     cfg = entry_config()
-    cfg.compute_dtype = "bfloat16"
+    cfg.compute_dtype = "float16"
     with pytest.raises(NotImplementedError):
         DH3D(cfg)
+    cfg = entry_config()
+    cfg.compute_dtype = "bfloat16"
+    DH3D(cfg)
     cfg = entry_config()
     cfg.morton_exact = False
     DH3D(cfg)

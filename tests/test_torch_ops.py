@@ -378,12 +378,16 @@ def test_cpu_path_never_builds_or_counts(cloud, knn8):
     f = _t(cloud).requires_grad_()
     T.flex_pool(f, _t(knn8))[0].sum().backward()  # kernel F's plain version
     T.flex_moments(f, _t(cloud), _t(knn8)).sum().backward()  # C and E on pos
+    fb = _t(cloud).to(torch.bfloat16).requires_grad_()
+    T.flex_moments(fb, _t(cloud), _t(knn8)).sum().backward()  # bf16 cases
     assert kernels.counts() == {"knn": 0, "knn_topk": 0, "knn_window": 0,
                                 "fps": 0,
                                 "weighted_sum": 0, "flex_moments": 0,
+                                "flex_moments_bf16": 0,
                                 "neighbor_max": 0,
                                 "weighted_sum_backward": 0,
                                 "flex_moments_backward": 0,
+                                "flex_moments_backward_bf16": 0,
                                 "neighbor_max_backward": 0}
     assert kernels._library is None
     path = kernels.library_path()

@@ -423,22 +423,25 @@ def test_smart_init_partial_load():
 
 
 def test_unported_options_raise():
-    """What the port still refuses (the parallel keys and bf16);
-    device_pairgen and augment_on_device run since the training data path
-    was ported (`tests/test_torch_data.py` holds them to the JAX trainer),
-    remat since it was ported (`tests/test_torch_surface.py`)."""
+    """What the port still refuses (the parallel keys, and a compute_dtype
+    other than float32 and bfloat16); device_pairgen and augment_on_device
+    run since the training data path was ported (`tests/test_torch_data.py`
+    holds them to the JAX trainer), remat since it was ported
+    (`tests/test_torch_surface.py`), the bf16 compute_dtype since it was
+    ported (`tests/test_torch_bf16.py`)."""
     from dh3d_tpu_torch.train import check_config
 
     for key, value in (("cross_device_mining", True),
                        ("bn_axis_name", "data"),
-                       ("compute_dtype", "bfloat16")):
+                       ("compute_dtype", "float16")):
         cfg = tcfg.get_config("detection_config")
         cfg[key] = value
         with pytest.raises(NotImplementedError):
             check_config(cfg)
-    for key in ("device_pairgen", "augment_on_device", "remat"):
+    for key, value in (("device_pairgen", True), ("augment_on_device", True),
+                       ("remat", True), ("compute_dtype", "bfloat16")):
         cfg = tcfg.get_config("detection_config")
-        cfg[key] = True
+        cfg[key] = value
         check_config(cfg)
 
 
@@ -485,11 +488,20 @@ def test_train_entry_point_refuses_what_it_cannot_do(tmp_path):
                     "--logdir", str(tmp_path)])
     for key, value in (("cross_device_mining", "true"),
                        ("bn_axis_name", '"data"'),
-                       ("compute_dtype", '"bfloat16"')):
+                       ("compute_dtype", '"float16"')):
         with pytest.raises(NotImplementedError, match=key):
             train_main(["--cfg", "detection_config", "--synthetic",
                         "--device", "cpu", "--set", f"{key}={value}",
                         "--logdir", str(tmp_path)])
+    # bf16 trains (one step at a small size); its config keeps the key
+    logdir = str(tmp_path / "bf16")
+    s = train_main(["--cfg", "detection_config", "--synthetic", "--device",
+                    "cpu", "--set", 'compute_dtype="bfloat16"', "--set",
+                    "num_points=256", "--set", "sampled_kpnum=8",
+                    "--batch_size", "1", "--steps", "1", "--logdir", logdir])
+    assert np.isfinite(s["metrics"]["total_cost"])
+    assert tcfg.load_config(os.path.join(logdir, "config.json")
+                            ).compute_dtype == "bfloat16"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             train_main(["--cfg", "detection_config", "--synthetic",
