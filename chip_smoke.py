@@ -196,7 +196,39 @@ result line:
      extraction CLI from the export (NMS, 2 scans) and the global one from
      demo_stage3's arrays under a bf16 config.  bf16 products accumulate
      in f32 (`allow_bf16_reduced_precision_reduction` off).
+ 17. the parallel path (`dh3d_tpu_torch.parallel`).  The machine has one
+     card and NCCL refuses two ranks on one device, so two ranks share
+     `cuda:0` through gloo (`backend="gloo"` of the mesh helper), in one
+     launch (`parallel.launch.spawn`) for (a), (b) and (d): (a) a
+     `global_config` step with `cross_device_mining` at
+     `models/demo_stage3.config.json`'s values (2 tuples of 1 + 2 + 8 + 1
+     clouds: 24 clouds of 8192 points, 12 a rank; no warmup, whose
+     learning rate is 0 at step 0), the local backbone of
+     `models/demo_stage3.npz`, the head from seed 0, unit-scale clouds
+     presorted; (b) a `detection_config` step at
+     `models/demo_stage2.config.json`'s values (10 pairs of 8192 points,
+     512 keypoints, `device_pairgen` on presorted clouds: B and the
+     pairgen's A on each rank), `models/demo_stage2.npz`, the pairs' draws
+     made once on the card; each against the one-process step on the
+     card from the same weights and draws: metrics, reduced gradients,
+     BN statistics, the updated parameters and Adam's moments at the CPU
+     tests' tolerances (`DP_*`), the state equal on both ranks, and every
+     kernel the one-process step launches launched by each rank's step;
+     (c) `python -m dh3d_tpu_torch.train --num_devices 1` on NCCL
+     (`detection_config`, synthetic, 3 steps at demo_stage2's values,
+     warm-started): finite metrics, one checkpoint; `--num_devices 2`
+     raises on a machine with one card; (d) `knn_sharded` on the two
+     ranks at [20, 8192] and [1, 16384], k=8: ids and distances equal to
+     `knn_bruteforce` bit for bit, G launched on each rank; (e)
+     `dryrun_multichip(2)` on CPU processes.  Step times on CUDA events
+     (median of 3 further steps) of both ranks, of the one-process step
+     and of the NCCL run, beside the card and its power limit: correctness
+     runs (two ranks share one card), no measure of scaling.
 The last three lines: the card, the kernels JSON, the ok JSON.
+
+    python3 chip_smoke.py --parallel
+
+runs phases 1, 2 and 17 alone (no kernels line).
 
 To compare two trees of the port on one card (run them in turns: parent,
 change, change, parent, in one call):
@@ -274,6 +306,28 @@ WSUM_REL = 1e-5
 # on both sides) and are held to 1e-3 of the model's largest gradient.
 TRAIN_LOSS_REL = 1e-4
 TRAIN_GRAD_REL = 1e-3
+# Phase 17, the data-parallel step against the one-process step on the
+# card.  The two differ only in the order of f32 sums (sync BatchNorm's sum
+# over the ranks in place of one mean, the gradient all-reduce).  At full
+# width that order alone moves some gradients by more than phase 7's
+# limits: the one-process step on the same batch with its tuples (pairs)
+# in reverse order, the same function, moved the attention block's BN bias
+# gradient by 2.0e-3 of its scale (global_config) and a backbone BN bias's
+# by 1.2e-3 (detection_config), and the mined loss by 1.7e-5 of itself.
+# So each kind of difference is held to the larger of its limit below and
+# twice that order noise, measured in the same run (`step_errors` of the
+# reversed batch): metrics TRAIN_LOSS_REL of the total, gradients
+# TRAIN_GRAD_REL of their scale (the biases that feed a BatchNorm: of a
+# tenth of the largest gradient), BN statistics TRAIN_LOSS_REL of their
+# scale plus 1e-6 (a mean of about 0 is rounding noise), Adam's moments
+# 0.1 g and 0.001 g^2 at twice the gradients' limit; parameters: Adam's
+# first step moves each by about lr * sign(g), so they agree to 1e-6 where
+# |g| is above 1e-2 of its tensor's scale and within 2 lr elsewhere.
+# `tests/test_torch_parallel.py` holds the step to 1e-5 and 1e-4 against
+# JAX at the CPU tests' sizes, where that noise is smaller.
+DP_METRIC_REL = TRAIN_LOSS_REL
+DP_GRAD_REL = TRAIN_GRAD_REL
+DP_BN_REL = TRAIN_LOSS_REL
 # Phase 16, bf16 (PERF.md §2's bf16 limits).  One bf16 step is up to 2^-7
 # of a value.  (a) the bf16 cases of C and E against their plain versions:
 # a value rounded to bf16 (C's m0, E's output) within one step plus
@@ -3054,7 +3108,230 @@ def bf16_cli_phase(torch, kernels, work, device="cuda"):
     return train_launches, report
 
 
-def main():
+def dp_global_case(torch):
+    """Phase 17 (a): (cfg, weights, whole batch) on the CPU."""
+    from dh3d_tpu_torch import config as cfglib
+    from dh3d_tpu_torch.data.io import morton_sort_np
+    from dh3d_tpu_torch.nn.convert import load_npz, smart_init
+    from dh3d_tpu_torch.train import init_state
+
+    cfg = cfglib.load_config("models/demo_stage3.config.json")
+    cfg.cross_device_mining = True
+    cfg.warmup_steps = 0
+    state = init_state(cfg, 0, "cpu")
+    flat = {k: v for k, v in load_npz("models/demo_stage3.npz").items()
+            if k.split("/")[1:2] == ["local_backbone"]}
+    assert smart_init(state.model, flat) == len(flat)
+    clouds = cfg.batch_size * (1 + cfg.num_pos + cfg.num_neg + 1)
+    pts = np.random.RandomState(17).randn(clouds, cfg.num_points, 3)
+    pts = morton_sort_np(pts.astype(np.float32))
+    return cfg, state.model.state_dict(), {"points": torch.from_numpy(pts)}
+
+
+def dp_detection_case(torch, device):
+    """Phase 17 (b): (cfg, weights, whole batch with its pair draws, made
+    on the card) on the CPU."""
+    from dh3d_tpu_torch import config as cfglib
+    from dh3d_tpu_torch.data.io import morton_sort_np
+    from dh3d_tpu_torch.parallel.jobs import to
+    from dh3d_tpu_torch.train import add_draws, to_device
+
+    cfg = cfglib.load_config("models/demo_stage2.config.json")
+    assert cfg.device_pairgen and cfg.morton_presorted
+    state = stage2_state(cfg, "cpu")
+    rng = np.random.RandomState(18)
+    B, N = cfg.batch_size, cfg.num_points
+    pc1 = (rng.randn(B, N, 3) * 20).astype(np.float32)
+    pc2 = np.stack([p[rng.permutation(N)] for p in pc1]) \
+        + (rng.randn(B, N, 3) * 0.02).astype(np.float32)
+    batch = to_device({"pc1": morton_sort_np(pc1),
+                       "pc2": morton_sort_np(pc2)}, device)
+    pairgen = torch.Generator(device=device).manual_seed(18)
+    batch = add_draws(batch, cfg, pairgen)
+    return cfg, state.model.state_dict(), to(batch, "cpu")
+
+
+def step_errors(one, other, bn_fed, lr) -> dict:
+    """The largest difference of each kind between two steps'
+    `step_result`s, each as a share of its `DP_*` limit."""
+    worst = {}
+
+    def share(kind, err, limit):
+        worst[kind] = max(worst.get(kind, 0.0), err / limit)
+
+    total = abs(one["metrics"]["total_cost"])
+    for k, v in one["metrics"].items():
+        share("metrics", abs(other["metrics"][k] - v),
+              DP_METRIC_REL * max(total, abs(v)))
+    top = max(g.abs().max().item() for g in one["grads"].values())
+    for name, g in one["grads"].items():
+        scale = top * 1e-1 if name in bn_fed else g.abs().max().item()
+        share("grads", (other["grads"][name] - g).abs().max().item(),
+              DP_GRAD_REL * scale)
+        for key, factor in (("exp_avg", 0.1), ("exp_avg_sq", 1e-3 * scale)):
+            err = (other["adam"][name][key] - one["adam"][name][key]).abs()
+            share("adam", err.max().item(), 2 * DP_GRAD_REL * factor * scale)
+        diff = (other["state"][name] - one["state"][name]).abs()
+        sure = g.abs() > 1e-2 * scale
+        share("params_sure", diff[sure].max().item() if sure.any() else 0.0,
+              1e-6)
+        share("params", diff.max().item(), 2 * lr + 1e-6)
+    for name, v in one["state"].items():
+        if name not in one["grads"]:  # BN statistics, frozen parameters
+            share("bn", (other["state"][name] - v).abs().max().item(),
+                  DP_BN_REL * v.abs().max().item() + 1e-6)
+    return worst
+
+
+def reversed_tuples(torch, cfg, batch):
+    """`batch` (a phase-17 case's, with its draws) with its tuples, or
+    pairs, in reverse order: the same step in exact arithmetic."""
+    out = dict(batch)
+    if "pc1" in batch:
+        out["pc1"], out["pc2"] = batch["pc1"].flip(0), batch["pc2"].flip(0)
+        out["pairgen_draws"] = tuple(d.flip(0) for d in batch["pairgen_draws"])
+        return out
+    B = cfg.batch_size
+    parts = batch["points"].split([B, cfg.num_pos * B, cfg.num_neg * B, B])
+    out["points"] = torch.cat([p.reshape(B, -1, *p.shape[1:]).flip(0)
+                               .reshape(p.shape) for p in parts])
+    return out
+
+
+def one_process_step(torch, kernels, device, cfg, weights, batch):
+    """The one-process step of a phase-17 case on the card: its
+    `step_result`, launches, `bn_fed_biases` and the median of 3 more
+    steps on CUDA events."""
+    from dh3d_tpu_torch.nn.layers import bn_fed_biases
+    from dh3d_tpu_torch.parallel.jobs import step_result, to
+    from dh3d_tpu_torch.train import init_state, make_train_step
+
+    state = init_state(cfg, 0, device)
+    state.model.load_state_dict(weights)
+    step = make_train_step(cfg)
+    batch = to(batch, device)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    m = step(state, batch)
+    torch.cuda.synchronize()
+    out = step_result(state, m)
+    out["launches"] = kernels.counts()
+    out["bn_fed"] = bn_fed_biases(state.model)
+    out["step_ms"] = cuda_ms(torch, lambda: step(state, batch), warmup=0,
+                             reps=3)
+    return out
+
+
+def raises(exc, fn):
+    """Whether fn() raises `exc` (another exception propagates)."""
+    try:
+        fn()
+    except exc:
+        return True
+    return False
+
+
+def parallel_phase(torch, kernels, device):
+    """Phase 17.  Returns ({path: launches of rank 0}, report)."""
+    from dh3d_tpu_torch import ops as T
+    from dh3d_tpu_torch.entry import dryrun_multichip
+    from dh3d_tpu_torch.parallel import jobs
+    from dh3d_tpu_torch.parallel.launch import spawn
+    from dh3d_tpu_torch.train.__main__ import main as train_main
+
+    cases = {"global": dp_global_case(torch),
+             "detection": dp_detection_case(torch, device)}
+    g = torch.Generator().manual_seed(19)
+    knn_cases = [((torch.randn(B, N, 3, generator=g) * 30), 8)
+                 for B, N in ((20, 8192), (1, 16384))]
+    one = {name: one_process_step(torch, kernels, device, *case)
+           for name, case in cases.items()}
+    noise = {}
+    for name, (cfg, weights, batch) in cases.items():
+        rev = one_process_step(torch, kernels, device, cfg, weights,
+                               reversed_tuples(torch, cfg, batch))
+        noise[name] = step_errors(one[name], rev, one[name]["bn_fed"],
+                                  cfg.start_lr)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(jobs.calls_job, 2, (
+        [(jobs.step_job, (dict(cfg), weights, batch, 3))
+         for cfg, weights, batch in cases.values()]
+        + [(jobs.knn_job, (knn_cases,))],), device="cuda", backend="gloo")
+    spawn_s = time.perf_counter() - t0
+    report, launches = {"spawn_s": spawn_s}, {}
+    for i, (name, (cfg, _, batch)) in enumerate(cases.items()):
+        o = one[name]
+        for r, rank in enumerate(ranks):
+            res = rank[i]
+            for key in ("grads", "state"):
+                for k, v in res[key].items():
+                    assert torch.equal(v, ranks[0][i][key][k]), (name, k)
+            worst = step_errors(o, res, o["bn_fed"], cfg.start_lr)
+            for kind, err in worst.items():
+                assert err <= max(1.0, 2 * noise[name][kind]), \
+                    (name, kind, err, noise[name][kind])
+            for k, n in o["launches"].items():
+                assert n == 0 or res["launches"][k] > 0, (name, r, k)
+        clouds = next(iter(batch.values())).shape[0] * (
+            2 if "pc1" in batch else 1)
+        report[name] = {
+            "clouds": clouds, "clouds_a_rank": clouds // 2,
+            "one_process_ms": o["step_ms"],
+            "rank_ms": [statistics.median(r[i]["step_ms"]) for r in ranks],
+            "errors_of_limit": worst, "order_noise_of_limit": noise[name],
+            "metrics": ranks[0][i]["metrics"],
+            "launches_a_rank": ranks[0][i]["launches"],
+            "launches_one_process": o["launches"]}
+        launches[f"parallel_{name}"] = ranks[0][i]["launches"]
+        log(f"  ({'a' if name == 'global' else 'b'}) {name}: 2 ranks on "
+            f"cuda:0 (gloo) match one process; errors {worst} of their "
+            f"limits, the order noise {noise[name]}; "
+            f"step {report[name]['rank_ms']} "
+            f"ms a rank, one process {o['step_ms']:.2f} ms; launches a rank "
+            f"{ranks[0][i]['launches']}")
+    for r, rank in enumerate(ranks):
+        for (pts, k), (idx, dist, counts) in zip(knn_cases, rank[-1]):
+            assert counts["knn_topk"] > 0, counts
+            want_idx, want_dist = T.knn_bruteforce(pts.to(device), k)
+            block = slice(r * pts.shape[1] // 2, (r + 1) * pts.shape[1] // 2)
+            assert torch.equal(idx, want_idx[:, block].cpu())
+            assert torch.equal(dist, want_dist[:, block].cpu())
+    launches["parallel_knn"] = ranks[0][-1][0][2]
+    log("  (d) knn_sharded on 2 ranks, [20, 8192] and [1, 16384] k=8: equal "
+        "to knn_bruteforce bit for bit")
+
+    with tempfile.TemporaryDirectory() as work:
+        argv = ["--cfg", "detection_config", "--synthetic", "--steps", "3",
+                "--load", "models/demo_stage2.npz", "--logdir", work]
+        t0 = time.perf_counter()
+        s = train_main(argv + ["--num_devices", "1"])
+        cli_s = time.perf_counter() - t0
+        assert all(map(math.isfinite, s["metrics"].values())), s["metrics"]
+        assert os.listdir(os.path.join(work, "ckpt")) == [
+            "step_00000003.pt"]
+        for name in TRAIN_KERNELS:
+            assert s["launches"][-1][name] > 0, (name, s["launches"][-1])
+        if torch.cuda.device_count() < 2:
+            assert raises(ValueError, lambda: train_main(
+                argv + ["--num_devices", "2"])), "--num_devices 2 ran"
+    launches["parallel_cli_nccl"] = s["launches"][-1]
+    report["nccl_cli"] = {"seconds": cli_s, "step_ms": s["step_ms"],
+                          "metrics": s["metrics"]}
+    log(f"  (c) train --num_devices 1 on NCCL: {cli_s:.1f} s, steps "
+        f"{s['step_ms']} ms; --num_devices 2 raised on "
+        f"{torch.cuda.device_count()} card(s)")
+
+    t0 = time.perf_counter()
+    dryrun_multichip(2)
+    report["dryrun_s"] = time.perf_counter() - t0
+    log(f"  (e) dryrun_multichip(2): {report['dryrun_s']:.1f} s")
+    log(f"  correctness runs, two ranks sharing one card: {card_line()}")
+    return launches, report
+
+
+def main(only_parallel=False):
     import torch
 
     if not torch.cuda.is_available():
@@ -3079,6 +3356,13 @@ def main():
     path, build_s = kernels.build()
     kernels.library()
     log(f"  built {path} in {build_s:.1f} s")
+
+    if only_parallel:
+        log("phase 17: the parallel path")
+        _, report = parallel_phase(torch, kernels, device)
+        log(json.dumps({"parallel": report}))
+        log(card_line())
+        return
 
     log("phase 3: kernels vs plain versions")
     cases = kernel_phase(torch, T, device)
@@ -3245,10 +3529,17 @@ def main():
     bf16_seconds = time.perf_counter() - t16
     log(f"  phase 16: {bf16_seconds:.1f} s")
 
-    # `launches`: the count from this slice's path (the bf16 forward and
-    # step) for the bf16 cases, from the legacy forward for H, from the
-    # relocalisation for the other kernels it runs, from the train step for
-    # E and F
+    log("phase 17: the parallel path: two ranks on cuda:0 through gloo, "
+        "NCCL at world 1, the sharded kNN, the dry run")
+    t17 = time.perf_counter()
+    parallel_launches, parallel_report = parallel_phase(torch, kernels,
+                                                        device)
+    parallel_report["seconds"] = time.perf_counter() - t17
+    log(f"  phase 17: {parallel_report['seconds']:.1f} s")
+
+    # `launches`: the count from this slice's path (phase 17 (b): one rank
+    # of the data-parallel detection step) for A-G, from the bf16 forward
+    # and step for the bf16 cases, from the legacy forward for H
     kernel_rows = []
     for name, rows in cases.items():
         main_case = rows[0]
@@ -3260,8 +3551,8 @@ def main():
                          else bf16_train_launches
                          if name == "flex_moments_backward_bf16"
                          else legacy_launches if name == "knn_window"
-                         else reloc_launches if name in FORWARD_KERNELS
-                         else train_launches)[name],
+                         else parallel_launches["parallel_detection"]
+                         )[name],
             "launches_by_path": {"forward": fwd_launches[name],
                                  "train_step": train_launches[name],
                                  "extract_local": extract_launches[name],
@@ -3272,7 +3563,9 @@ def main():
                                  "curriculum": curriculum_launches[name],
                                  "bf16_forward": bf16_launches[name],
                                  "bf16_train_step": bf16_train_launches[name],
-                                 "bf16_train_cli": bf16_cli_launches[name]},
+                                 "bf16_train_cli": bf16_cli_launches[name],
+                                 **{path: counts[name] for path, counts
+                                    in parallel_launches.items()}},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
@@ -3286,6 +3579,7 @@ def main():
                                      "bench": bench_report,
                                      "curriculum": curriculum_report}}))
     log(json.dumps({"bf16": {"seconds": bf16_seconds, **bf16_report}}))
+    log(json.dumps({"parallel": parallel_report}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": kernel_rows}))
@@ -3581,6 +3875,8 @@ def ab_compare(paths):
 if __name__ == "__main__":
     if len(sys.argv) == 1:
         main()
+    elif sys.argv[1:] == ["--parallel"]:
+        main(only_parallel=True)
     else:
         import argparse
 

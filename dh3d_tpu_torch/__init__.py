@@ -5,7 +5,9 @@ never imported here.  Layout mirrors `dh3d_tpu`: `ops` (kNN, FPS, Morton
 order, the flex-conv family and interpolation, each kernelled op with its
 plain PyTorch version beside the CUDA kernel's wrapper), `nn` (layers,
 backbones, the DH3D eval forward, the Flax-checkpoint converter), `eval`
-(the extraction forward) and `entry` (the main-path model and inputs).
+(the extraction forward), `parallel` (data parallelism over
+`torch.distributed`) and `entry` (the main-path model and inputs, and the
+multi-process dry run).
 
 Tensors are channel-last `[B, N, C]`, float32, with int64 indices.  A
 kernelled op takes its plain version only for CPU tensors; on CUDA tensors

@@ -1,4 +1,5 @@
-"""The main-path forward: counterpart of `__graft_entry__.entry()`.
+"""The main-path forward, counterpart of `__graft_entry__.entry()`, and
+the multi-process dry run, counterpart of `dryrun_multichip`.
 
 `global_config` with the detection block, eval mode, Morton order, exact
 neighbour sets, 8192-point clouds: local descriptors, keypoint attention
@@ -63,3 +64,32 @@ def entry(device="cuda", batch: int = 2, seed: int = 0):
     cfg, model = entry_model(device)
     points = torch.from_numpy(entry_points(batch, seed=seed)).to(device)
     return make_forward(cfg, model), (points,)
+
+
+def dryrun_multichip(n_devices: int) -> None:
+    """One data-parallel step of each kind on `n_devices` gloo processes on
+    the CPU, at `__graft_entry__.dryrun_multichip`'s sizes (N=64, 8
+    keypoints, one pair or tuple a rank), each checked
+    (`parallel.jobs.dryrun_job`): a basic_config step; a Morton-presorted
+    detection_config step with `device_pairgen`; the point-sharded kNN
+    equal to `knn_bruteforce`; the mined loss of a global_config step with
+    `cross_device_mining` equal to one process's on the whole batch; and,
+    with n_devices >= 4 and even, the basic step on a 2-axis ("dcn",
+    "data") mesh equal to the 1-D mesh's.  Prints the line the JAX
+    function prints; raises when a check fails."""
+    from dh3d_tpu_torch.parallel import jobs
+    from dh3d_tpu_torch.parallel.launch import spawn
+
+    facts = spawn(jobs.dryrun_job, n_devices, device="cpu")
+    for f in facts[1:]:
+        if f != facts[0]:
+            raise AssertionError(f"ranks disagree: {f} against {facts[0]}")
+    f = facts[0]
+    dcn = f["dcn"]
+    print(f"dryrun_multichip({n_devices}): one DP train step OK "
+          f"(total_cost={f['total_cost']:.4f}); morton_presorted+"
+          f"device_pairgen DP step OK ({f['morton']:.4f}); point-sharded "
+          f"knn OK; cross-device batch-hard mining OK (mined loss "
+          f"{f['mined']:.4f} == single-device)"
+          + (f"; 2-axis dcn x data mesh step OK ({dcn:.4f})"
+             if dcn is not None else ""))

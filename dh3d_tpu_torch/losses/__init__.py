@@ -15,6 +15,7 @@ from dh3d_tpu_torch.losses.losses import (  # noqa: F401
     lazy_quadruplet_loss,
     lazy_triplet_loss,
     local_detection_loss_nn,
+    loss_inputs,
     pairwise_dist,
     pairwise_dist_cosine,
     pairwise_dist_matmul,

@@ -5,8 +5,9 @@
   local_detection_loss_nn  unsupervised keypoint detector loss
   lazy_triplet_loss        PointNetVLAD lazy triplet
   lazy_quadruplet_loss     lazy quadruplet
-  batch_hard_*             the batch-hard twins (one process; with an
-                           `axis_name` they raise: parallel is not ported)
+  batch_hard_*             the batch-hard twins: every query mines the
+                           negatives of the whole batch, and with an
+                           `axis_name` those of every rank of its group
 
 Every formula follows the JAX function term by term, so that discrete
 choices (thresholds, argmin, argmax, the top-k ranking) fall the same way:
@@ -23,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from dh3d_tpu_torch import ops
+from dh3d_tpu_torch.parallel.collectives import all_gather
 
 
 def _max0(x: torch.Tensor) -> torch.Tensor:
@@ -201,12 +203,12 @@ def lazy_quadruplet_loss(global_descs, batch_size, num_pos, num_neg,
 
 
 def _global_neg_pool(neg, axis_name=None):
-    """All negative clouds of the batch as one pool [B*Nn, D].  Pooling
-    across processes (`axis_name`) is not ported."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "batch-hard mining across processes (axis_name) is not ported")
-    return neg.reshape(-1, neg.shape[-1])
+    """All negative clouds of the batch as one pool [B*Nn, D].  With
+    `axis_name` (the group it stands for: a process group or a
+    `parallel.Mesh`), the pools of every rank, all-gathered with gradient
+    in rank order [n*B*Nn, D]: `lax.all_gather(pool, axis_name)` inside a
+    shard_map (`dh3d_tpu/losses/losses.py:244-257`)."""
+    return all_gather(neg.reshape(-1, neg.shape[-1]), axis_name)
 
 
 def batch_hard_triplet_loss(global_descs, batch_size, num_pos, num_neg,
@@ -258,6 +260,20 @@ BATCH_HARD_UPGRADE = {
     "lazy_triplet_loss": "batch_hard_triplet_loss",
     "lazy_quadruplet_loss": "batch_hard_quadruplet_loss",
 }
+
+
+def loss_inputs(cfg) -> tuple:
+    """The keys of the model's outputs that `compute_total_loss` reads
+    under `cfg` (besides the batch's R)."""
+    keys = []
+    if cfg.extract_global:
+        keys.append("global_desc")
+    if cfg.add_local_loss:
+        keys += ["xyz_sampled", "feat_sampled"]
+    if cfg.detection and cfg.add_det_loss:
+        keys += ["xyz", "feat", "sample_nodes_concat", "xyz_sampled",
+                 "feat_sampled", "att_sampled"]
+    return tuple(dict.fromkeys(keys))
 
 
 def compute_total_loss(outs, cfg, params_l2=0.0):

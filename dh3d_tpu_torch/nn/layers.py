@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from dh3d_tpu_torch import ops
+from dh3d_tpu_torch.parallel.collectives import all_reduce
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,
@@ -80,7 +81,14 @@ class BatchNorm(nn.Module):
     computes them: mean(x) and var = max(0, mean(x^2) - mean(x)^2), the
     gradient flowing through both; the running statistics then move as
     m * old + (1 - m) * new, with the biased var (Flax's momentum m is
-    the weight of the old value: 0.9 by default, 0.999 in NetVLAD)."""
+    the weight of the old value: 0.9 by default, 0.999 in NetVLAD).
+
+    `group` (None, a process group or a `parallel.Mesh`) is Flax's
+    `axis_name`: sync BatchNorm.  In train mode the layer then all-reduces
+    sum(x), sum(x * x) and the element count over the group, with
+    gradient, and applies the same formula to the group's batch, so every
+    rank's running statistics move alike.  Eval mode runs no collective.
+    `sync_batchnorm` sets it on every BatchNorm of a model."""
 
     epsilon = 1e-5
 
@@ -88,6 +96,7 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.momentum = momentum
         self.update_statistics = True  # off in a remat recompute
+        self.group = None
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -97,8 +106,15 @@ class BatchNorm(nn.Module):
         x = x.float()  # a bf16 input normalises in f32, as in Flax
         if self.training:
             dims = tuple(range(x.dim() - 1))
-            mean = x.mean(dims)
-            var = torch.clamp_min((x * x).mean(dims) - mean * mean, 0.0)
+            if self.group is None:
+                mean, meansq = x.mean(dims), (x * x).mean(dims)
+            else:
+                c = x.shape[-1]
+                sums = all_reduce(torch.cat([
+                    x.sum(dims), (x * x).sum(dims),
+                    x.new_full((1,), x.numel() // c)]), self.group)
+                mean, meansq = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+            var = torch.clamp_min(meansq - mean * mean, 0.0)
             if self.update_statistics:
                 with torch.no_grad():
                     m = self.momentum
@@ -108,6 +124,14 @@ class BatchNorm(nn.Module):
             mean, var = self.mean, self.var
         mul = torch.rsqrt(var + self.epsilon) * self.scale
         return (x - mean) * mul + self.bias
+
+
+def sync_batchnorm(module: nn.Module, group) -> None:
+    """Set `group` (None: each process on its own batch) on every
+    BatchNorm of `module`."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
 
 
 @contextlib.contextmanager

@@ -6,7 +6,7 @@
         [--steps N] [--logdir DIR] [--load FLAX.npz|CKPT.pt|LOGDIR] \
         [--resume CKPT.pt] [--profile] \
         [--seed S] [--set key=value ...] [--num_points N] [--batch_size B] \
-        [--device cuda|cpu]
+        [--num_devices N] [--device cuda|cpu]
 
 Batches come from `.bin` clouds and a GT pickle under `--data_basedir`
 (`train.data.real_batches`, in a prefetch thread when `cfg.prefetch` > 0)
@@ -33,12 +33,26 @@ activity, and CUDA activity on a CUDA device) into a Chrome trace under
 step start + 15 once the device has finished, so a run of fewer than 16
 steps writes none.
 
-`main` returns a summary: the tensors a warm start restored, the steps,
-the host-clock seconds of the loop, each step's wait in `next(batches)`,
-its time on CUDA events (on a CUDA device) and its kernel launches, the
-last metrics, and the trace file (`profile`, None without one).
-`--device` defaults to cuda and raises when there is no CUDA device; the
-CPU (the kernels' plain versions) runs only when asked for.
+`--num_devices N` trains data parallel on N processes, one a device
+(`parallel.launch.spawn`; the step is `trainer.make_train_step(cfg,
+mesh)`): NCCL and `cuda:r` for rank r by default, which raises before
+starting any process when there are fewer than N cards; gloo with
+`--device cpu`.  The kernels are built once, before the ranks start.
+Every rank loads the whole batch of each step from the same seed, as a
+one-process run does (the samplers draw each cloud's subsampling and
+augmentation in sequence from one generator, so a rank cannot load its
+own clouds alone), and keeps its block.  Rank 0 alone writes the config,
+the metrics and the checkpoints, whose format is the one-process run's:
+either kind resumes the other.  A rank that fails stops the others, and
+the run raises.
+
+`main` returns a summary (rank 0's under `--num_devices`): the tensors a
+warm start restored, the steps, the host-clock seconds of the loop, each
+step's wait in `next(batches)`, its time on CUDA events (on a CUDA
+device) and its kernel launches, the last metrics, and the trace file
+(`profile`, None without one). `--device` defaults to cuda and raises
+when there is no CUDA device; the CPU (the kernels' plain versions) runs
+only when asked for.
 """
 
 from __future__ import annotations
@@ -55,6 +69,9 @@ from dh3d_tpu_torch import config as cfglib
 from dh3d_tpu_torch import kernels
 from dh3d_tpu_torch.data.prefetch import ThreadedPrefetcher
 from dh3d_tpu_torch.nn.convert import warm_start
+from dh3d_tpu_torch.parallel import jobs
+from dh3d_tpu_torch.parallel.launch import spawn
+from dh3d_tpu_torch.parallel.mesh import placement, replicate
 from dh3d_tpu_torch.train import trainer
 from dh3d_tpu_torch.train.data import real_batches
 from dh3d_tpu_torch.train.synthetic import synthetic_batches
@@ -88,13 +105,16 @@ def parse_args(argv=None):
                         "positives) in the train step")
     p.add_argument("--num_points", type=int, default=None)
     p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="train data parallel on this many processes, one "
+                        "a device (NCCL on CUDA, gloo with --device cpu)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                    help="override any config key (JSON-parsed value)")
     return p.parse_args(argv)
 
 
-def build_config(args):
+def build_config(args, log=print):
     cfg = cfglib.get_config(args.cfg)
     for key in ("data_basedir", "num_points", "batch_size"):
         if getattr(args, key) is not None:
@@ -107,7 +127,7 @@ def build_config(args):
             cfg[key] = json.loads(value)
         except json.JSONDecodeError:
             cfg[key] = value
-        print(f"config override: {key} = {cfg[key]!r}")
+        log(f"config override: {key} = {cfg[key]!r}")
     return cfg
 
 
@@ -140,16 +160,33 @@ def write_trace(prof, logdir: str, first: int, last: int) -> str:
 def main(argv=None):
     args = parse_args(argv)
     device = trainer.require_device(args.device)
-    cfg = build_config(args)
+    args.logdir = args.logdir or os.path.join(
+        "train_log", f"{args.cfg}_{time.strftime('%m%d-%H%M%S')}")
+    if args.num_devices is None:
+        return run(args, device)
+    trainer.check_config(build_config(args, log=lambda *a: None))
+    placement(args.num_devices, device)  # fewer cards than ranks: raise
+    if device.type == "cuda":
+        kernels.build()
+    return spawn(jobs.train_job, args.num_devices, (args,),
+                 device=device.type)[0]
+
+
+def run(args, device, mesh=None):
+    """The training loop of `args` on `device`: one process, or this
+    rank of `mesh`, which then writes nothing unless it is rank 0."""
+    first = mesh is None or mesh.position == 0
+    log = print if first else (lambda *a, **k: None)
+    cfg = build_config(args, log)
     trainer.check_config(cfg)
     if not args.synthetic and not cfg.data_basedir:
         raise ValueError("no training data: give --data_basedir DIR (.bin "
                          "clouds and the GT pickle) or --synthetic")
 
-    logdir = args.logdir or os.path.join(
-        "train_log", f"{args.cfg}_{time.strftime('%m%d-%H%M%S')}")
-    os.makedirs(logdir, exist_ok=True)
-    cfglib.save_config(cfg, os.path.join(logdir, "config.json"))
+    logdir = args.logdir
+    if first:
+        os.makedirs(logdir, exist_ok=True)
+        cfglib.save_config(cfg, os.path.join(logdir, "config.json"))
 
     if args.synthetic:
         batches = synthetic_batches(cfg, args.seed)
@@ -162,22 +199,27 @@ def main(argv=None):
     restored = None
     if args.resume:
         trainer.restore_state(args.resume, state)
-        print(f"resumed at step {state.step} from {args.resume}")
+        log(f"resumed at step {state.step} from {args.resume}")
     elif args.load:
         restored = warm_start(state.model, args.load)
-        print(f"warm start: restored {restored} tensors from {args.load}")
-    print(f"device: {device}; logdir: {logdir}")
+        log(f"warm start: restored {restored} tensors from {args.load}")
+    if mesh is not None:
+        replicate(state, mesh)
+        log(f"mesh: {mesh.size} ranks {mesh.shape}")
+    log(f"device: {device}; logdir: {logdir}")
 
-    step_fn = trainer.make_train_step(cfg)
+    step_fn = trainer.make_train_step(cfg, mesh)
     every = int(cfg.savemodel_every_k_steps or 0)
     timed = device.type == "cuda"
     summary = {"restored": restored, "steps": args.steps, "wait_s": [],
                "launches": [], "events": [], "profile": None}
     t0 = time.time()
     start = state.step
-    profiling = args.profile and args.steps >= 16
+    profiling = first and args.profile and args.steps >= 16
     tracing = contextlib.ExitStack()  # stops the profiler, also on a raise
-    with open(os.path.join(logdir, "metrics.jsonl"), "a") as log, tracing:
+    metrics_log = (open(os.path.join(logdir, "metrics.jsonl"), "a") if first
+                   else contextlib.nullcontext())
+    with metrics_log as metrics_file, tracing:
         for i in range(start, start + args.steps):
             t_wait = time.perf_counter()
             raw = next(batches)
@@ -205,19 +247,19 @@ def main(argv=None):
                     torch.cuda.synchronize(device)
                 tracing.close()
                 summary["profile"] = write_trace(prof, logdir, i - 5, i)
-                print(f"profile: {summary['profile']}", flush=True)
+                log(f"profile: {summary['profile']}", flush=True)
             last = i == start + args.steps - 1
-            if i % 50 == 0 or last:
+            if first and (i % 50 == 0 or last):
                 m = {k: round(float(v), 5) for k, v in metrics.items()}
                 m["step"] = i
                 m["wall_s"] = round(time.time() - t0, 1)
-                print(f"step {i}: {json.dumps(m)}", flush=True)
-                log.write(json.dumps(m) + "\n")
-                log.flush()
-            if (every and (i + 1) % every == 0) or last:
+                log(f"step {i}: {json.dumps(m)}", flush=True)
+                metrics_file.write(json.dumps(m) + "\n")
+                metrics_file.flush()
+            if first and ((every and (i + 1) % every == 0) or last):
                 path = trainer.save_checkpoint(
                     os.path.join(logdir, "ckpt"), state, i + 1)
-                print(f"saved {path}", flush=True)
+                log(f"saved {path}", flush=True)
     if timed:
         torch.cuda.synchronize(device)
     summary["seconds"] = time.time() - t0

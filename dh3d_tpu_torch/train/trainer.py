@@ -24,6 +24,20 @@ device (`augment_on_device`) and builds the self pairs of a {pc1, pc2}
 batch (`device_pairgen`: FPS on kernel B, the 1-NN on kernel A), from
 draws made by two generators the caller passes (`add_draws`,
 `prepare_batch`).
+
+Data parallel (`make_train_step(cfg, group)`, over a `parallel.Mesh`):
+the counterpart of the JAX step jitted over a mesh, whose global view
+makes it the one-device step on the whole batch.  Every rank gets the
+whole batch, draws the whole batch's draws from the same generators,
+keeps its own block of clouds (`parallel.shard_batch`; a local batch by
+pairs), runs the forward on it with sync BatchNorm, all-gathers with
+gradient the outputs the losses read back into the one-process order and
+runs the losses on them unchanged.  Every rank so computes the whole loss,
+and its backward, through the collectives' adjoints, the gradient of n
+times it: the step zero-fills the unreached trainable gradients,
+all-reduces the gradients and divides them by n, then clips and takes the
+Adam step, the same on every rank.  Frozen groups get no gradient and no
+collective.
 """
 
 from __future__ import annotations
@@ -40,22 +54,30 @@ from dh3d_tpu_torch import config as cfglib
 from dh3d_tpu_torch.config import dotdict
 from dh3d_tpu_torch.data.augment import draw_augment, torch_augment
 from dh3d_tpu_torch.data.pairgen import draw_local_pairs, local_pairs
-from dh3d_tpu_torch.losses import compute_total_loss
+from dh3d_tpu_torch.losses import compute_total_loss, loss_inputs
 from dh3d_tpu_torch.nn.convert import (load_flax, load_npz,
                                        warm_start_state_dict)
+from dh3d_tpu_torch.nn.layers import sync_batchnorm
 from dh3d_tpu_torch.nn.model import DH3D, compute_dtype, frozen_groups
-
-# config keys of the JAX trainer that this port does not run yet (the
-# parallel path)
-_UNPORTED = ("cross_device_mining", "bn_axis_name")
+from dh3d_tpu_torch.parallel.collectives import (all_gather, reduce_,
+                                                 size)
+from dh3d_tpu_torch.parallel.mesh import shard_batch
 
 
 def check_config(cfg) -> None:
     """Raise NotImplementedError for a config that asks for a part of the
-    JAX trainer the port does not have."""
-    for key in _UNPORTED:
-        if cfg.get(key):
-            raise NotImplementedError(f"{key}={cfg.get(key)!r} is not ported")
+    JAX trainer the port does not have: a compute_dtype other than
+    float32 and bfloat16, and `bn_axis_name`.  The JAX trainer refuses the
+    latter too (an unbound axis name, whether or not the step runs over a
+    mesh): a named axis binds only inside a shard_map, and the global-view
+    step already syncs BatchNorm over the whole batch, as the port's data-
+    parallel step does (`make_train_step(cfg, group)`)."""
+    if cfg.get("bn_axis_name"):
+        raise NotImplementedError(
+            f"bn_axis_name={cfg.get('bn_axis_name')!r}: a named axis binds "
+            "only inside a shard_map, which neither trainer has (the JAX "
+            "trainer raises an unbound axis name); the data-parallel step "
+            "syncs BatchNorm over the whole batch without it")
     compute_dtype(cfg)  # float32 or bfloat16; parameters and Adam stay f32
 
 
@@ -199,23 +221,54 @@ def prepare_batch(batch: dict, cfg) -> dict:
     return out
 
 
-def forward_loss(model: DH3D, cfg, batch: dict):
+def gather_outputs(outs: dict, cfg, group) -> dict:
+    """The outputs the losses read (`loss_inputs`, and R), all-gathered
+    over `group` with gradient into the one-process order: a local batch's
+    rank blocks [its pc1; its pc2] back into [pc1 of all; pc2 of all], R
+    and a global batch's clouds in rank order."""
+    n = size(group)
+    out = {}
+    for key in loss_inputs(cfg) + (("R",) if "R" in outs else ()):
+        x = all_gather(outs[key], group)
+        if cfg.training_local and key != "R":
+            x = x.reshape(n, 2, -1, *x.shape[1:]).transpose(0, 1)
+            x = x.reshape(-1, *x.shape[3:])
+        out[key] = x
+    return out
+
+
+def forward_loss(model: DH3D, cfg, batch: dict, group=None):
     """The forward and the losses of one batch in the model's current mode
-    (`trainer.py:147-211`).  Returns (total loss, metrics, outs)."""
+    (`trainer.py:147-211`).  With a `group`, `batch` is this rank's block
+    and the losses run on the whole batch's outputs (`gather_outputs`).
+    Returns (total loss, metrics, outs); outs are this rank's."""
     outs = model(batch["points"], sample_inds=batch.get("sample_inds"))
     if "R" in batch:
         outs["R"] = batch["R"]
-    total, metrics = compute_total_loss(outs, cfg, kernel_l2(model))
+    whole = outs if group is None else gather_outputs(outs, cfg, group)
+    total, metrics = compute_total_loss(whole, cfg, kernel_l2(model))
     return total, metrics, outs
 
 
-def apply_gradients(state: TrainState, cfg) -> None:
-    """Clip (optax form), set the learning rate for this update count, take
-    one Adam step, count it."""
+def reduce_gradients(params: list, group) -> None:
+    """Every parameter's gradient summed over `group` and divided by its
+    size, in place: the mean over the ranks (one all-reduce)."""
+    flat = torch.cat([p.grad.reshape(-1) for p in params])
+    reduce_(flat, group).div_(size(group))
+    for p, g in zip(params, flat.split([p.numel() for p in params])):
+        p.grad.copy_(g.view_as(p))
+
+
+def apply_gradients(state: TrainState, cfg, group=None) -> None:
+    """Reduce the gradients over `group` (`reduce_gradients`), clip
+    (optax form), set the learning rate for this update count, take one
+    Adam step, count it."""
     params = [p for g in state.optimizer.param_groups for p in g["params"]]
     for p in params:
         if p.grad is None:  # unreached: a zero gradient, as optax sees it
             p.grad = torch.zeros_like(p)
+    if group is not None:
+        reduce_gradients(params, group)
     max_norm = cfg.get("grad_clip_norm")
     if max_norm:
         max_norm = float(max_norm)
@@ -230,24 +283,54 @@ def apply_gradients(state: TrainState, cfg) -> None:
     state.step += 1
 
 
-def make_train_step(cfg):
+def shard_step_batch(batch: dict, cfg, group) -> dict:
+    """This rank's block of a whole batch with its draws (`add_draws`): a
+    local batch by pairs, a global one by clouds (`parallel.shard_batch`).
+    Raises ValueError unless the pairs (local) or the clouds (global)
+    divide over the group."""
+    n = size(group)
+    if "pc1" in batch:
+        count = batch["pc1"].shape[0]
+    elif cfg.training_local:
+        count = batch["R"].shape[0]
+    else:
+        count = batch["points"].shape[0]
+    if count % n:
+        what = "pairs" if cfg.training_local else "clouds"
+        raise ValueError(f"{count} {what} do not divide over {n} ranks: "
+                         f"choose batch_size (times the tuple size) "
+                         f"divisible by {n}")
+    return shard_batch(batch, group,
+                       pairs=count if cfg.training_local else None)
+
+
+def make_train_step(cfg, group=None):
     """train_step(state, batch, pairgen=None, augment=None) -> metrics: the
     batch's preparation on the device (`add_draws` from the two generators,
     `prepare_batch`), one forward in train mode, the losses, the backward
     and one optimizer update, in place on `state`.  The metrics are
-    detached scalar tensors (reading them syncs)."""
+    detached scalar tensors (reading them syncs).
+
+    With `group` (a `parallel.Mesh` or a process group) the step is data
+    parallel (module docstring): every rank passes the whole batch and
+    generators seeded alike; metrics, parameters, BN statistics and Adam
+    state come out the same on every rank."""
     check_config(cfg)
     cfg = dotdict(dict(cfg))
 
     def train_step(state: TrainState, batch: dict,
                    pairgen: torch.Generator | None = None,
                    augment: torch.Generator | None = None) -> dict:
-        batch = prepare_batch(add_draws(batch, cfg, pairgen, augment), cfg)
+        batch = add_draws(batch, cfg, pairgen, augment)
+        if group is not None:
+            batch = shard_step_batch(batch, cfg, group)
+        batch = prepare_batch(batch, cfg)
         state.model.train()
-        total, metrics, _ = forward_loss(state.model, cfg, batch)
+        sync_batchnorm(state.model, group)
+        total, metrics, _ = forward_loss(state.model, cfg, batch, group)
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
-        apply_gradients(state, cfg)
+        apply_gradients(state, cfg, group)
         return {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
 
     return train_step

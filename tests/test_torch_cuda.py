@@ -1142,3 +1142,120 @@ def test_bf16_forward_on_card_launches_the_bf16_cases(device):
     assert torch.equal(card["knn_indices"], cpu["knn_indices"])
     for key, top in (("local_desc", 0.2), ("global_desc", 2e-4)):
         assert (card[key] - cpu[key]).abs().max().item() <= top, key
+
+
+# ------------------------------ the parallel path ------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A process group of one on NCCL (this test process, `cuda:0`), with a
+    gloo group of the same rank beside it, for the collectives on CUDA
+    tensors under both backends."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    import torch.distributed as dist
+
+    from dh3d_tpu_torch.parallel import data_parallel_mesh
+
+    store = str(tmp_path_factory.mktemp("nccl") / "store")
+    mesh = data_parallel_mesh(1, rank=0, store=store, device="cuda")
+    assert dist.get_backend() == "nccl"
+    yield mesh, dist.new_group([0], backend="gloo")
+    dist.destroy_process_group()
+
+
+def test_sync_batchnorm_on_a_group_of_one(nccl_mesh):
+    """BatchNorm with the NCCL group (sum(x), sum(x^2) and the count
+    all-reduced with autograd) against the layer without one: y, dx, the
+    parameter gradients and the running statistics within 1e-5."""
+    from dh3d_tpu_torch.nn.layers import BatchNorm
+
+    mesh, _ = nccl_mesh
+    g = torch.Generator().manual_seed(31)
+    x = (torch.randn(4, 2048, 64, generator=g) * 2 + 5).cuda()
+    dy = torch.randn(4, 2048, 64, generator=g).cuda()
+    outs = []
+    for group in (None, mesh):
+        layer = BatchNorm(64).cuda().train()
+        layer.group = group
+        xi = x.clone().requires_grad_()
+        y = layer(xi)
+        y.backward(dy)
+        outs.append((y.detach(), xi.grad, layer.scale.grad, layer.bias.grad,
+                     layer.mean, layer.var))
+    for a, b in zip(*outs):
+        _close(b, a)
+
+
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_autograd_collectives_on_cuda_tensors(nccl_mesh, backend):
+    """`all_reduce` and `all_gather` (dims 0 and 1) of a CUDA tensor in a
+    group of one, NCCL and gloo: the input's values, and the gradient of
+    sum(out * c) is c."""
+    from dh3d_tpu_torch.parallel import all_gather, all_reduce
+
+    mesh, gloo = nccl_mesh
+    group = mesh if backend == "nccl" else gloo
+    g = torch.Generator().manual_seed(32)
+    x = torch.randn(5, 7, generator=g).cuda()
+    c = torch.randn(5, 7, generator=g).cuda()
+    for fn in (lambda v: all_reduce(v, group),
+               lambda v: all_gather(v, group, dim=0),
+               lambda v: all_gather(v, group, dim=1)):
+        v = x.clone().requires_grad_()
+        y = fn(v)
+        (y * c).sum().backward()
+        assert torch.equal(y, x) and torch.equal(v.grad, c)
+
+
+@pytest.mark.parametrize("B,N,k", [(2, 8192, 8), (1, 16384, 8), (1, 4096, 3)])
+def test_knn_sharded_group_of_one_equals_bruteforce(nccl_mesh, B, N, k):
+    """`knn_sharded` at world 1 on NCCL: the ids and distances of
+    `knn_bruteforce`, bit for bit (kernel G at k=8, A at k=3)."""
+    from dh3d_tpu_torch.parallel import knn_sharded, point_block
+
+    mesh, _ = nccl_mesh
+    g = torch.Generator().manual_seed(N + k)
+    pts = (torch.randn(B, N, 3, generator=g) * 30).cuda()
+    idx, dist = knn_sharded(point_block(pts, mesh), k, mesh)
+    want_idx, want_dist = T.knn_bruteforce(pts, k)
+    assert torch.equal(idx, want_idx) and torch.equal(dist, want_dist)
+
+
+def test_dp_step_on_a_group_of_one_equals_one_process(nccl_mesh):
+    """A detection_config step at [4, 4096] through `make_train_step(cfg,
+    mesh)` on the NCCL group of one (sync BatchNorm, the gathers, the
+    gradient all-reduce) against the plain step from the same weights and
+    draws: metrics within 1e-5 of the total, gradients within 1e-4 of
+    their scale (1e-5 of the largest for the biases that feed a
+    BatchNorm), the kernels launched as often."""
+    from dh3d_tpu_torch import config as cfglib
+    from dh3d_tpu_torch.nn.layers import bn_fed_biases
+    from dh3d_tpu_torch.train import (add_draws, init_state, make_train_step,
+                                      synthetic_batches, to_device)
+
+    mesh, _ = nccl_mesh
+    cfg = cfglib.get_config("detection_config")
+    cfg.num_points, cfg.batch_size, cfg.sampled_kpnum = 4096, 4, 128
+    batch = to_device(next(synthetic_batches(cfg, 0)), "cuda")
+    batch = add_draws(batch, cfg)
+    runs = []
+    for group in (None, mesh):
+        state = init_state(cfg, 0, "cuda")
+        kernels.reset_counts()
+        m = make_train_step(cfg, group)(state, dict(batch))
+        torch.cuda.synchronize()
+        runs.append((m, {n: p.grad.clone() for n, p in
+                         state.model.named_parameters()},
+                     kernels.counts()))
+    (m1, g1, c1), (m2, g2, c2) = runs
+    total = abs(m1["total_cost"].item())
+    for k in m1:
+        assert abs(m1[k].item() - m2[k].item()) <= 1e-5 * max(
+            total, abs(m1[k].item())), k
+    zero = bn_fed_biases(state.model)
+    top = max(v.abs().max().item() for v in g1.values())
+    for n, v in g1.items():
+        scale = top * 1e-1 if n in zero else v.abs().max().item()
+        assert (g2[n] - v).abs().max().item() <= 1e-4 * scale, n
+    assert c1 == c2 and c1["knn_topk"] > 0

@@ -185,9 +185,16 @@ def test_global_losses_match_jax(name):
 
 
 def test_batch_hard_across_processes_is_not_ported():
+    """Mining across processes is ported: `axis_name` is the process
+    group (or `parallel.Mesh`) the pool is all-gathered over
+    (`tests/test_torch_parallel.py` holds it to JAX's `shard_map`).  A
+    bare axis name, bound to no group, raises, as JAX raises an unbound
+    axis name outside a shard_map; None is the one-process pool."""
     g = torch.from_numpy(_global_descs(2, 12))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NameError, match="unbound axis name"):
         TL.batch_hard_triplet_loss(g, 2, 2, 3, axis_name="data")
+    one, _ = TL.batch_hard_triplet_loss(g, 2, 2, 3, axis_name=None)
+    assert torch.equal(one, TL.batch_hard_triplet_loss(g, 2, 2, 3)[0])
 
 
 @pytest.mark.parametrize("name", ["detection_config", "global_config"])

@@ -211,6 +211,11 @@ def test_port_imports_no_jax():
         "import dh3d_tpu_torch.ops.grouping, dh3d_tpu_torch.ops.sampling\n"
         "import dh3d_tpu_torch.ops.interpolate, dh3d_tpu_torch.nn.layers\n"
         "import dh3d_tpu_torch.bench, dh3d_tpu_torch.scripts\n"
+        "import dh3d_tpu_torch.parallel, dh3d_tpu_torch.parallel.launch\n"
+        "import dh3d_tpu_torch.parallel.jobs\n"
+        "import dh3d_tpu_torch.parallel.collectives\n"
+        "import dh3d_tpu_torch.parallel.mesh\n"
+        "import dh3d_tpu_torch.parallel.sharded_knn\n"
         "import dh3d_tpu_torch.scripts.package_checkpoint\n"
         "import dh3d_tpu_torch.scripts.train_demo_curriculum\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"

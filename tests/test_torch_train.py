@@ -271,29 +271,38 @@ def _compare_step(name, variables, batch, port_batch=None, **overrides):
     total, tm, _ = forward_loss(state.model, tc,
                                 prepare_batch(port_batch, tc))
     total.backward()
+    grads = {n: p.grad for n, p in state.model.named_parameters()
+             if p.requires_grad}
+    return check_step_against_jax((jm, jbs, jg), tm, grads,
+                                  dict(state.model.named_buffers()),
+                                  bn_fed_biases(state.model))
 
-    for k, v in tm.items():  # every metric, a relative 1e-5 of the total
+
+def check_step_against_jax(jax_step, metrics, grads, buffers, bn_fed):
+    """A port step's metrics, the gradients of its trainable parameters
+    ({name: tensor}; a frozen group has none) and its BN statistics
+    against `_jax_step`'s, at the module docstring's tolerances.
+    `bn_fed`: the names `bn_fed_biases` gives.  Returns the number of
+    gradients compared."""
+    jm, jbs, jg = jax_step
+    for k, v in metrics.items():  # every metric, a relative 1e-5 of the total
         scale = max(abs(float(jm["total_cost"])), abs(float(jm[k])))
         assert abs(float(v) - float(jm[k])) <= 1e-5 * scale, k
-    params = dict(state.model.named_parameters())
-    zero = bn_fed_biases(state.model)
     flat = flatten_variables({"params": jg})
     top = max(np.abs(g).max() for g in flat.values())
     n = 0
     for path, g in flat.items():
         tn, transposed = torch_name(path)
-        p = params[tn]
-        if not p.requires_grad:  # a frozen group: outside the optimizer
+        if tn not in grads:  # a frozen group: outside the optimizer
             continue
-        got = p.grad.numpy().T if transposed else p.grad.numpy()
-        scale = top * 1e-1 if tn in zero else np.abs(g).max()
+        got = grads[tn].numpy().T if transposed else grads[tn].numpy()
+        scale = top * 1e-1 if tn in bn_fed else np.abs(g).max()
         assert np.abs(got - g).max() <= 1e-4 * scale, tn
         n += 1
     assert n > 0
-    bufs = dict(state.model.named_buffers())
     for path, v in flatten_variables({"batch_stats": jbs}).items():
         tn, _ = torch_name(path)
-        err = np.abs(bufs[tn].numpy() - v).max()
+        err = np.abs(buffers[tn].numpy() - v).max()
         assert err <= 1e-5 * np.abs(v).max() + 1e-6, tn
     return n
 
@@ -423,23 +432,25 @@ def test_smart_init_partial_load():
 
 
 def test_unported_options_raise():
-    """What the port still refuses (the parallel keys, and a compute_dtype
-    other than float32 and bfloat16); device_pairgen and augment_on_device
+    """What the port still refuses: `bn_axis_name`, which the JAX trainer
+    refuses too (`tests/test_torch_parallel.py`), and a compute_dtype
+    other than float32 and bfloat16.  device_pairgen and augment_on_device
     run since the training data path was ported (`tests/test_torch_data.py`
     holds them to the JAX trainer), remat since it was ported
     (`tests/test_torch_surface.py`), the bf16 compute_dtype since it was
-    ported (`tests/test_torch_bf16.py`)."""
+    ported (`tests/test_torch_bf16.py`), cross_device_mining since the
+    parallel path was ported (`tests/test_torch_parallel.py`)."""
     from dh3d_tpu_torch.train import check_config
 
-    for key, value in (("cross_device_mining", True),
-                       ("bn_axis_name", "data"),
+    for key, value in (("bn_axis_name", "data"),
                        ("compute_dtype", "float16")):
         cfg = tcfg.get_config("detection_config")
         cfg[key] = value
         with pytest.raises(NotImplementedError):
             check_config(cfg)
     for key, value in (("device_pairgen", True), ("augment_on_device", True),
-                       ("remat", True), ("compute_dtype", "bfloat16")):
+                       ("remat", True), ("compute_dtype", "bfloat16"),
+                       ("cross_device_mining", True)):
         cfg = tcfg.get_config("detection_config")
         cfg[key] = value
         check_config(cfg)
@@ -486,13 +497,22 @@ def test_train_entry_point_refuses_what_it_cannot_do(tmp_path):
     with pytest.raises(ValueError, match="--data_basedir"):
         train_main(["--cfg", "detection_config", "--device", "cpu",
                     "--logdir", str(tmp_path)])
-    for key, value in (("cross_device_mining", "true"),
-                       ("bn_axis_name", '"data"'),
+    for key, value in (("bn_axis_name", '"data"'),
                        ("compute_dtype", '"float16"')):
         with pytest.raises(NotImplementedError, match=key):
             train_main(["--cfg", "detection_config", "--synthetic",
                         "--device", "cpu", "--set", f"{key}={value}",
                         "--logdir", str(tmp_path)])
+        with pytest.raises(NotImplementedError, match=key):
+            train_main(["--cfg", "detection_config", "--synthetic",
+                        "--device", "cpu", "--set", f"{key}={value}",
+                        "--num_devices", "2", "--logdir", str(tmp_path)])
+    # cross-device mining trains (one global step at a small size)
+    s = train_main(["--cfg", "global_config", "--synthetic", "--device",
+                    "cpu", "--set", "cross_device_mining=true", "--set",
+                    "num_points=256", "--set", "num_neg=1", "--steps", "1",
+                    "--logdir", str(tmp_path / "mined")])
+    assert np.isfinite(s["metrics"]["hardest_neg_dist"])
     # bf16 trains (one step at a small size); its config keeps the key
     logdir = str(tmp_path / "bf16")
     s = train_main(["--cfg", "detection_config", "--synthetic", "--device",

@@ -65,8 +65,8 @@ def _stage(monkeypatch, argv):
     seen = {}
     make = trainer.make_train_step
 
-    def recording(cfg):
-        step = make(cfg)
+    def recording(cfg, group=None):
+        step = make(cfg, group)
 
         def first(state, *args):
             if not seen:
