@@ -25,6 +25,7 @@ from typing import Iterator, List, Optional
 
 import numpy as np
 
+from dh3d_tpu_torch import trace
 from dh3d_tpu_torch.data.augment import get_augmentations_from_list
 from dh3d_tpu_torch.data.io import (
     FarthestSampler,
@@ -57,13 +58,16 @@ class LocalTrainSelfPair:
         return len(self.dict)
 
     def _process(self, cloud):
-        cloud, _ = get_fixednum_pcd(
-            cloud, self.numpts, randsample=True, need_downsample=False,
-            sortby_dis=False, rng=self.rng,
-        )
-        for a in self.augmentation:
-            cloud = a.apply(cloud, self.rng)
-        return cloud.astype(np.float32)
+        """One copy of a read cloud normalised and augmented (span
+        `load`)."""
+        with trace.span("load"):
+            cloud, _ = get_fixednum_pcd(
+                cloud, self.numpts, randsample=True, need_downsample=False,
+                sortby_dis=False, rng=self.rng,
+            )
+            for a in self.augmentation:
+                cloud = a.apply(cloud, self.rng)
+            return cloud.astype(np.float32)
 
     def load_pair(self, ind):
         from scipy.spatial import cKDTree
@@ -179,15 +183,17 @@ class GlobalTrainTriplet:
         return len(self.dict)
 
     def load_pc(self, ind):
+        """Cloud `ind` read, normalised and augmented (span `load`)."""
         pcfile = os.path.join(self.basedir, self.dict[ind]["query"] + ".bin")
-        cloud = load_single_pcfile(pcfile)
-        cloud, _ = get_fixednum_pcd(
-            cloud, self.numpts, randsample=True, need_downsample=False,
-            sortby_dis=True, rng=self.rng,
-        )
-        for a in self.augmentation:
-            cloud = a.apply(cloud, self.rng)
-        return cloud.astype(np.float32)
+        with trace.span("load"):
+            cloud = load_single_pcfile(pcfile)
+            cloud, _ = get_fixednum_pcd(
+                cloud, self.numpts, randsample=True, need_downsample=False,
+                sortby_dis=True, rng=self.rng,
+            )
+            for a in self.augmentation:
+                cloud = a.apply(cloud, self.rng)
+            return cloud.astype(np.float32)
 
     def __iter__(self):
         order = list(range(len(self)))
@@ -245,7 +251,8 @@ def collate_global(items, numpts):
 class LocalTestDataset:
     """Eval-time cloud loader with fixed-size normalisation and optional
     host kNN.  Yields [cloud [numpts, 3] f32, file name, ori_num
-    (, knn_ind [numpts, knn_require] int32)]."""
+    (, knn_ind [numpts, knn_require] int32)]; each cloud's work is the
+    span `load`."""
 
     def __init__(self, basedir, numpts=2 * 8192, knn_require=8, dim=6,
                  seed=0):
@@ -265,22 +272,23 @@ class LocalTestDataset:
         from scipy.spatial import cKDTree
 
         for pcfile in self.files:
-            cloud = load_single_pcfile(pcfile, dim=self.dim)
-            ori_num = cloud.shape[0]
-            if ori_num != self.numpts:
-                cloud, ori_num = get_fixednum_pcd(
-                    cloud, self.numpts, randsample=False,
-                    need_downsample=True, rng=self.rng,
-                )
-            else:
-                choice = self.rng.choice(cloud.shape[0], self.numpts,
-                                         replace=False)
-                cloud = cloud[choice, :]
-            ret = [cloud, os.path.basename(pcfile), ori_num]
-            if self.knn > 0:
-                _, knn_ind = cKDTree(cloud).query(cloud, k=self.knn)
-                ret.append(np.asarray(knn_ind, np.int32)
-                           .reshape(len(cloud), self.knn))
+            with trace.span("load"):
+                cloud = load_single_pcfile(pcfile, dim=self.dim)
+                ori_num = cloud.shape[0]
+                if ori_num != self.numpts:
+                    cloud, ori_num = get_fixednum_pcd(
+                        cloud, self.numpts, randsample=False,
+                        need_downsample=True, rng=self.rng,
+                    )
+                else:
+                    choice = self.rng.choice(cloud.shape[0], self.numpts,
+                                             replace=False)
+                    cloud = cloud[choice, :]
+                ret = [cloud, os.path.basename(pcfile), ori_num]
+                if self.knn > 0:
+                    _, knn_ind = cKDTree(cloud).query(cloud, k=self.knn)
+                    ret.append(np.asarray(knn_ind, np.int32)
+                               .reshape(len(cloud), self.knn))
             yield ret
 
 

@@ -14,10 +14,14 @@ import pickle
 
 import numpy as np
 
+from dh3d_tpu_torch import trace
+
 
 def load_single_pcfile(filename, dim=3, dtype=np.float32):
-    """Flat float32 .bin -> [N, 3] (`core/utils.py:145-148`)."""
-    pc = np.fromfile(filename, dtype=dtype)
+    """Flat float32 .bin -> [N, 3] (`core/utils.py:145-148`); span
+    `load.read`."""
+    with trace.span("load.read"):
+        pc = np.fromfile(filename, dtype=dtype)
     pc = np.reshape(pc, (pc.shape[0] // dim, dim))
     return pc[:, 0:3]
 
@@ -67,30 +71,34 @@ def get_fixednum_pcd(cloud, targetnum, randsample=True, need_downsample=False,
     """Fixed-size cloud normalisation (`core/utils.py:87-110`): optional
     voxel downsample, outlier removal, then the `targetnum` points nearest
     the centroid in a random order (oversized), or padding by resampling or
-    with 1e5 sentinel points (undersized).  Returns (cloud, ori_num)."""
+    with 1e5 sentinel points (undersized).  Returns (cloud, ori_num).
+    Spans: `load.voxel_grid`, `load.outlier_removal`, `load.select`."""
     rng = rng or np.random
     if need_downsample:
-        cloud = voxel_downsample(cloud)
-    ind = remove_radius_outlier(cloud)
-    cloud = cloud[ind, :]
-    ori_num = cloud.shape[0]
-    if cloud.shape[0] > targetnum:
-        if sortby_dis:
-            centroid = np.mean(cloud, axis=0)
-            dis = np.sum(np.square(cloud - centroid), axis=1)
-            order = np.argsort(dis)
-            cloud = cloud[order[:targetnum], :3]
-        choice = rng.choice(cloud.shape[0], targetnum, replace=False)
-        cloud = cloud[choice, :]
-        ori_num = targetnum
-    else:
-        pad = targetnum - cloud.shape[0]
-        if randsample:
-            extra = cloud[rng.choice(cloud.shape[0], size=pad, replace=True)]
+        with trace.span("load.voxel_grid"):
+            cloud = voxel_downsample(cloud)
+    with trace.span("load.outlier_removal"):
+        cloud = cloud[remove_radius_outlier(cloud), :]
+    with trace.span("load.select"):
+        ori_num = cloud.shape[0]
+        if cloud.shape[0] > targetnum:
+            if sortby_dis:
+                centroid = np.mean(cloud, axis=0)
+                dis = np.sum(np.square(cloud - centroid), axis=1)
+                order = np.argsort(dis)
+                cloud = cloud[order[:targetnum], :3]
+            choice = rng.choice(cloud.shape[0], targetnum, replace=False)
+            cloud = cloud[choice, :]
+            ori_num = targetnum
         else:
-            extra = np.ones([pad, 3], np.float32) * 100000
-        cloud = np.concatenate((cloud, extra), axis=0)
-    return cloud.astype(np.float32), ori_num
+            pad = targetnum - cloud.shape[0]
+            if randsample:
+                extra = cloud[rng.choice(cloud.shape[0], size=pad,
+                                         replace=True)]
+            else:
+                extra = np.ones([pad, 3], np.float32) * 100000
+            cloud = np.concatenate((cloud, extra), axis=0)
+        return cloud.astype(np.float32), ori_num
 
 
 def center_crop(pc, rad=20, shift=(0, 0, 0)):

@@ -13,13 +13,14 @@ att = 1 - res[:, -1] (`localdesc_extract.py:94`).
 
 from __future__ import annotations
 
+import contextlib
 import os
-import time
 from typing import Iterable
 
 import numpy as np
 import torch
 
+from dh3d_tpu_torch import trace
 from dh3d_tpu_torch.data.io import write_to_bin
 from dh3d_tpu_torch.eval.nms import nms_keypoint_indices
 from dh3d_tpu_torch.nn.model import DH3D
@@ -61,18 +62,9 @@ def _pad(batch, batch_size, dtype):
     return np.concatenate([batch, np.zeros((pad,) + batch.shape[1:], dtype)])
 
 
-def _timed(items, timings):
-    """Yield from `items`, adding the seconds spent producing each (host
-    load and normalisation) to timings['load']."""
-    it = iter(items)
-    while True:
-        t0 = time.perf_counter()
-        try:
-            item = next(it)
-        except StopIteration:
-            return
-        timings["load"] = timings.get("load", 0.0) + time.perf_counter() - t0
-        yield item
+# the spans whose host seconds `extract_local` adds to `timings`
+TIMED_SPANS = {"load": "load", "extract.forward": "forward",
+               "extract.nms": "nms", "extract.write": "write"}
 
 
 def extract_local(cfg, model: DH3D, dataset: Iterable, save_dir,
@@ -84,65 +76,66 @@ def extract_local(cfg, model: DH3D, dataset: Iterable, save_dir,
 
     dataset yields [cloud [N, 3], name, ori_num(, knn_ind [N, k])].
     Writes `<name>_res.bin` (dense) or `<name>_nms_res.bin` (keypoints,
-    NMS on the model's device).  `timings`, when given, accumulates host
-    seconds under 'load' (dataset), 'forward' (forward and the copy of the
-    rows to the host), 'nms' and 'write'.  Returns the number of clouds."""
+    NMS on the model's device).  Spans (`trace`): `extract.forward` (the
+    forward and the copy of the rows to the host), `extract.nms`,
+    `extract.write`.  `timings`, when given, turns recording on and
+    accumulates host seconds under 'load' (the dataset's `load` spans),
+    'forward', 'nms' and 'write', draining the trace's store after each
+    batch.  Returns the number of clouds."""
     os.makedirs(save_dir, exist_ok=True)
     fwd = make_forward(cfg, model)
     device = next(model.parameters()).device
     with_att = bool(cfg.detection)
-    timings = {} if timings is None else timings
-
-    def add(key, t0):
-        timings[key] = timings.get(key, 0.0) + time.perf_counter() - t0
-
     buf, names, orinums, knns = [], [], [], []
 
     def write(rows, path):
-        t0 = time.perf_counter()
-        write_to_bin(np.float32(rows), path)
-        add("write", t0)
+        with trace.span("extract.write"):
+            write_to_bin(np.float32(rows), path)
 
     def flush():
         if not buf:
             return 0
-        t0 = time.perf_counter()
-        batch = _pad(np.stack(buf), batch_size, np.float32)
-        knn = None
-        if knns[0] is not None:
-            knn = _pad(np.stack(knns), batch_size, np.int32)
-        rows = local_result_rows(fwd(batch, knn), with_att)
-        add("forward", t0)
+        with trace.span("extract.forward", device):
+            batch = _pad(np.stack(buf), batch_size, np.float32)
+            knn = None
+            if knns[0] is not None:
+                knn = _pad(np.stack(knns), batch_size, np.int32)
+            rows = local_result_rows(fwd(batch, knn), with_att)
         for b, (name, num) in enumerate(zip(names, orinums)):
             res = rows[b][:num]
             stem = os.path.join(save_dir, os.path.splitext(name)[0])
             if save_all or not with_att or not perform_nms:
                 write(res, f"{stem}_res.bin")
                 continue
-            t0 = time.perf_counter()
-            xyz = res[:, 0:3]
-            attention = 1 - res[:, -1]  # reference inversion
-            max_idx = nms_keypoint_indices(
-                xyz, attention, nms_radius=nms_rad,
-                min_response_ratio=nms_min_ratio, max_keypoints=nms_max_kp,
-                backend=nms_backend, parity_check=nms_parity_check,
-                device=device)
-            add("nms", t0)
+            with trace.span("extract.nms", device):
+                xyz = res[:, 0:3]
+                attention = 1 - res[:, -1]  # reference inversion
+                max_idx = nms_keypoint_indices(
+                    xyz, attention, nms_radius=nms_rad,
+                    min_response_ratio=nms_min_ratio,
+                    max_keypoints=nms_max_kp, backend=nms_backend,
+                    parity_check=nms_parity_check, device=device)
             write(res[max_idx, :], f"{stem}_nms_res.bin")
         n = len(names)
         buf.clear(); names.clear(); orinums.clear(); knns.clear()
+        if timings is not None:
+            for r in trace.records(clear=True):
+                key = TIMED_SPANS.get(r["name"])
+                if key:
+                    timings[key] = timings.get(key, 0.0) + r["host_ms"] / 1e3
         return n
 
     total = 0
-    for item in _timed(dataset, timings):
-        buf.append(np.asarray(item[0], np.float32))
-        names.append(item[1])
-        orinums.append(int(item[2]))
-        knns.append(item[3] if len(item) > 3 else None)
-        if len(buf) == batch_size:
-            total += flush()
-    total += flush()
-    return total
+    with (trace.enabled() if timings is not None
+          else contextlib.nullcontext()):
+        for item in dataset:
+            buf.append(np.asarray(item[0], np.float32))
+            names.append(item[1])
+            orinums.append(int(item[2]))
+            knns.append(item[3] if len(item) > 3 else None)
+            if len(buf) == batch_size:
+                total += flush()
+        return total + flush()
 
 
 def extract_global(cfg, model: DH3D, dataset: Iterable, save_dir,

@@ -20,11 +20,13 @@ no CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
 import torch
 
+from dh3d_tpu_torch import trace
 from dh3d_tpu_torch.data import GlobalTestDataset
 from dh3d_tpu_torch.data.io import get_sets_dict
 from dh3d_tpu_torch.eval.extract import make_forward
@@ -91,32 +93,57 @@ def main(argv=None) -> dict:
     device = eval_device(args.device)
     timings = dict.fromkeys(TIMING_KEYS, 0.0)
     t_start = time.perf_counter()
-    clock = [t_start]
+    with trace.enabled():
+        return run(args, device, timings, t_start)
 
-    def lap(key):
-        """Add the host seconds since the last lap to `key`, once the
-        device has finished the work queued before it."""
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        now = time.perf_counter()
-        timings[key] += now - clock[0]
-        clock[0] = now
+
+def run(args, device, timings, t_start) -> dict:
+    """`main`'s work, recording (`trace.enabled`): each stage a span
+    `relocalize.<key>`, ended once the device has finished the stage's
+    work; the spans' host seconds go to `timings` as the store drains."""
+
+    @contextlib.contextmanager
+    def stage(key):
+        with trace.span(f"relocalize.{key}"):
+            yield
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+
+    def drain() -> dict:
+        """{key: host ms} of the stages recorded since the last drain,
+        added to `timings`."""
+        ms = dict.fromkeys(TIMING_KEYS, 0.0)
+        for r in trace.records(clear=True):
+            if r["name"].startswith("relocalize."):
+                ms[r["name"][len("relocalize."):]] += r["host_ms"]
+        for k, v in ms.items():
+            timings[k] += v / 1e3
+        return ms
 
     # ---- stage A: global descriptors of the database and the queries
-    _, gfwd = build_forward(args.global_model, True, args.num_points, device)
-    _, lfwd = build_forward(args.local_model, False, args.num_points, device)
-    lap("models")
+    with stage("models"):
+        _, gfwd = build_forward(args.global_model, True, args.num_points,
+                                device)
+        _, lfwd = build_forward(args.local_model, False, args.num_points,
+                                device)
 
     def descriptors(gt_file):
-        ds = GlobalTestDataset(args.pcdpath, gt_file, numpts=args.num_points)
+        it = iter(GlobalTestDataset(args.pcdpath, gt_file,
+                                    numpts=args.num_points))
         names, descs, clouds = [], [], []
-        for cloud, name in ds:
-            lap("load")
-            descs.append(gfwd(cloud[None])["global_desc"][0].cpu().numpy())
+        while True:
+            with stage("load"):
+                item = next(it, None)
+            if item is None:
+                drain()
+                return names, np.stack(descs), clouds
+            cloud, name = item
+            with stage("global_forward"):
+                descs.append(gfwd(cloud[None])["global_desc"][0]
+                             .cpu().numpy())
             names.append(name)
             clouds.append(cloud)
-            lap("global_forward")
-        return names, np.stack(descs), clouds
+            drain()
 
     db_names, db_desc, db_clouds = descriptors(args.db_gt)
     q_names, q_desc, q_clouds = descriptors(args.query_gt)
@@ -127,30 +154,30 @@ def main(argv=None) -> dict:
     def keypoints(cloud):
         """(keypoints [k, 3], descriptors [k, 128], indices [k]) on the
         device: the forward, the inverted attention, NMS."""
-        pts = torch.as_tensor(cloud, device=device)
-        o = lfwd(pts[None])
-        desc = o["local_desc"][0]
-        if "attention" in o:
-            att = 1 - o["attention"][0, :, 0]  # the reference inversion
-        else:
-            att = torch.ones(len(cloud), device=device)
-        lap("local_forward")
-        if args.nms_backend == "host":
-            xyz, att = cloud.astype(np.float64), att.cpu().numpy()
-        else:
-            xyz = pts
-        idx = nms_keypoint_indices(
-            xyz, att, nms_radius=NMS_RADIUS,
-            min_response_ratio=NMS_MIN_RATIO, max_keypoints=args.nms_max_kp,
-            backend=args.nms_backend, device=device)
-        ids = torch.as_tensor(idx, dtype=torch.long, device=device)
-        lap("nms")
+        with stage("local_forward"):
+            pts = torch.as_tensor(cloud, device=device)
+            o = lfwd(pts[None])
+            desc = o["local_desc"][0]
+            if "attention" in o:
+                att = 1 - o["attention"][0, :, 0]  # the reference inversion
+            else:
+                att = torch.ones(len(cloud), device=device)
+        with stage("nms"):
+            if args.nms_backend == "host":
+                xyz, att = cloud.astype(np.float64), att.cpu().numpy()
+            else:
+                xyz = pts
+            idx = nms_keypoint_indices(
+                xyz, att, nms_radius=NMS_RADIUS,
+                min_response_ratio=NMS_MIN_RATIO,
+                max_keypoints=args.nms_max_kp, backend=args.nms_backend,
+                device=device)
+            ids = torch.as_tensor(idx, dtype=torch.long, device=device)
         return pts[ids], desc[ids], idx
 
     results, n_retrieved, n_registered = [], 0, 0
     n = min(args.max_queries, len(q_names))
     for qi in range(n):
-        before = dict(timings)
         order = np.argsort(np.linalg.norm(db_desc - q_desc[qi], axis=1))
         top1 = int(order[0])
         dq, dd = q_pos[q_names[qi]], db_pos[db_names[top1]]
@@ -162,14 +189,17 @@ def main(argv=None) -> dict:
         kp_db, desc_db, idx_db = keypoints(db_clouds[top1])
         # register_clouds(kp_db, desc_db, kp_q, desc_q, seed=qi), timed
         # by stage
-        matches = match_descriptors_mutual(desc_db, desc_q, device=device)
-        lap("matching")
+        with stage("matching"):
+            matches = match_descriptors_mutual(desc_db, desc_q,
+                                               device=device)
         res = None
-        if len(matches) >= 3:
-            res = ransac_rigid(kp_db[matches[:, 0]], kp_q[matches[:, 1]],
-                               iters=args.ransac_iters, seed=qi,
-                               device=device)
-        lap("ransac")
+        with stage("ransac"):
+            if len(matches) >= 3:
+                res = ransac_rigid(kp_db[matches[:, 0]],
+                                   kp_q[matches[:, 1]],
+                                   iters=args.ransac_iters, seed=qi,
+                                   device=device)
+        ms = drain()
         inl = f"{res.num_inliers}/{res.num_matches}" if res else "n/a"
         reg_ok = res is not None and res.num_inliers >= REGISTERED_INLIERS
         n_registered += int(reg_ok and retrieved)
@@ -182,7 +212,7 @@ def main(argv=None) -> dict:
             "inliers": res.num_inliers if res else None,
             "matches": res.num_matches if res else None,
             "registered": bool(reg_ok), "kp_query": idx_q, "kp_db": idx_db,
-            "ms": {k: 1e3 * (timings[k] - before[k]) for k in QUERY_KEYS}})
+            "ms": {k: ms[k] for k in QUERY_KEYS}})
 
     print(f"\nretrieval@1 (<25m): {n_retrieved}/{n}; "
           f"registered (>=10 inliers): {n_registered}/{n}")

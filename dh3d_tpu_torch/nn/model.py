@@ -26,7 +26,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from dh3d_tpu_torch import ops
+from dh3d_tpu_torch import ops, trace
 from dh3d_tpu_torch.config import dotdict
 from dh3d_tpu_torch.nn import backbones
 from dh3d_tpu_torch.nn.layers import frozen_statistics, l2_normalize
@@ -124,23 +124,31 @@ class DH3D(nn.Module):
     def forward(self, points, knn_inds=None, sample_inds=None):
         """points [B, N, 3] f32; knn_inds optional [B, N, knn_num] int64
         neighbour ids in the input order; sample_inds optional
-        [B, sampled_kpnum] keypoint ids.  Returns the `outs` dict."""
+        [B, sampled_kpnum] keypoint ids.  Returns the `outs` dict.  Spans
+        (`trace`): `model.forward`, and in it `model.morton` (the Z-order
+        sort and the row gathers it feeds)."""
+        with trace.span("model.forward", points):
+            return self._forward(points, knn_inds, sample_inds)
+
+    def _forward(self, points, knn_inds, sample_inds):
         cfg = self.cfg
         inv_perm = None
         if cfg.morton_order and not cfg.morton_presorted:
             # Z-order sort; every per-point computation runs in sorted
             # space and dense outputs are un-permuted on exit in eval mode
             # (training keeps the sorted order: the losses read it)
-            perm, inv_perm = ops.morton_perm(points)
-            points = _take_rows(points, perm)
-            if sample_inds is not None:
-                sample_inds = torch.gather(
-                    inv_perm, 1, sample_inds.reshape(points.shape[0], -1))
-            if knn_inds is not None:
-                rows = _take_rows(knn_inds, perm)
-                knn_inds = torch.gather(
-                    inv_perm, 1, rows.reshape(rows.shape[0], -1)
-                ).reshape(rows.shape)
+            with trace.span("model.morton", points):
+                perm, inv_perm = ops.morton_perm(points)
+                points = _take_rows(points, perm)
+                if sample_inds is not None:
+                    sample_inds = torch.gather(
+                        inv_perm, 1,
+                        sample_inds.reshape(points.shape[0], -1))
+                if knn_inds is not None:
+                    rows = _take_rows(knn_inds, perm)
+                    knn_inds = torch.gather(
+                        inv_perm, 1, rows.reshape(rows.shape[0], -1)
+                    ).reshape(rows.shape)
 
         if knn_inds is None:
             # the legacy mode's full-resolution band (`dh3d_tpu/nn/

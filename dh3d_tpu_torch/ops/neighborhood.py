@@ -61,7 +61,7 @@ from __future__ import annotations
 
 import torch
 
-from dh3d_tpu_torch import kernels
+from dh3d_tpu_torch import kernels, trace
 
 MAX_P = 4
 MAX_K = 64
@@ -125,9 +125,11 @@ class NeighborInverse:
         self._csr = None
 
     def get(self):
-        """(rowptr, entries) of `inverse_neighbors(nbh, m)`, built once."""
+        """(rowptr, entries) of `inverse_neighbors(nbh, m)`, built once
+        (span `csr_inverse`)."""
         if self._csr is None:
-            self._csr = inverse_neighbors(self.nbh, self.m)
+            with trace.span("csr_inverse", self.nbh):
+                self._csr = inverse_neighbors(self.nbh, self.m)
         return self._csr
 
 

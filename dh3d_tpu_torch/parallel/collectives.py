@@ -28,6 +28,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from dh3d_tpu_torch import trace
+
 
 def groups_of(group) -> tuple:
     """The process groups `group` reduces over, in order (() for None)."""
@@ -57,11 +59,13 @@ def position(group) -> int:
     return pos
 
 
-def reduce_(t: torch.Tensor, group) -> torch.Tensor:
+def reduce_(t: torch.Tensor, group, op: str = "all_reduce") -> torch.Tensor:
     """Sum the contiguous tensor `t` over `group` in place, without
-    autograd; returns it."""
-    for g in groups_of(group):
-        dist.all_reduce(t, group=g)
+    autograd; returns it.  Span `collective.<op>`: the collective it
+    serves."""
+    with trace.span(f"collective.{op}", t):
+        for g in groups_of(group):
+            dist.all_reduce(t, group=g)
     return t
 
 
@@ -84,12 +88,12 @@ class _AllGather(torch.autograd.Function):
         ctx.group, ctx.block = group, slice(at, at + rows)
         out = x.new_zeros((size(group) * rows, *x.shape[1:]))
         out[ctx.block] = x
-        return reduce_(out, group)
+        return reduce_(out, group, "all_gather")
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone(memory_format=torch.contiguous_format)
-        return reduce_(grad, ctx.group)[ctx.block], None
+        return reduce_(grad, ctx.group, "all_gather")[ctx.block], None
 
 
 def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:

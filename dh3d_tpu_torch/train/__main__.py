@@ -46,27 +46,32 @@ the metrics and the checkpoints, whose format is the one-process run's:
 either kind resumes the other.  A rank that fails stops the others, and
 the run raises.
 
-`main` returns a summary (rank 0's under `--num_devices`): the tensors a
-warm start restored, the steps, the host-clock seconds of the loop, each
-step's wait in `next(batches)`, its time on CUDA events (on a CUDA
-device) and its kernel launches, the last metrics, and the trace file
-(`profile`, None without one). `--device` defaults to cuda and raises
-when there is no CUDA device; the CPU (the kernels' plain versions) runs
-only when asked for.
+The run records the port's spans (`trace.enable`), so `--profile`'s
+trace shows them (`dh3d:<span>`) on the device's timeline.  `main`
+returns a summary (rank 0's under `--num_devices`): the tensors a warm
+start restored, the steps, the host-clock seconds of the loop, each
+step's wait in `next(batches)` (`wait_s`, span `step.wait`), its device
+time (`step_ms`, span `step`'s CUDA events; None off CUDA) and its
+kernel launches (the trace's counters), `spans` (`span_summary`), the
+last metrics, and the trace file (`profile`, None without one).
+`--device` defaults to cuda and raises when there is no CUDA device; the
+CPU (the kernels' plain versions) runs only when asked for.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
 import json
 import os
+import statistics
 import time
 
 import torch
 
 from dh3d_tpu_torch import config as cfglib
-from dh3d_tpu_torch import kernels
+from dh3d_tpu_torch import kernels, trace
 from dh3d_tpu_torch.data.prefetch import ThreadedPrefetcher
 from dh3d_tpu_torch.nn.convert import warm_start
 from dh3d_tpu_torch.parallel import jobs
@@ -210,24 +215,26 @@ def run(args, device, mesh=None):
 
     step_fn = trainer.make_train_step(cfg, mesh)
     every = int(cfg.savemodel_every_k_steps or 0)
-    timed = device.type == "cuda"
-    summary = {"restored": restored, "steps": args.steps, "wait_s": [],
-               "launches": [], "events": [], "profile": None}
+    summary = {"restored": restored, "steps": args.steps, "launches": [],
+               "profile": None}
+    spans = {}  # name: [(start_ns, end_ns, host ms, device ms)]
+
+    def drain(wait):
+        for r in trace.records(clear=True, wait=wait):
+            spans.setdefault(r["name"], []).append(
+                (r["start_ns"], r["end_ns"], r["host_ms"], r["device_ms"]))
+
     t0 = time.time()
     start = state.step
     profiling = first and args.profile and args.steps >= 16
     tracing = contextlib.ExitStack()  # stops the profiler, also on a raise
     metrics_log = (open(os.path.join(logdir, "metrics.jsonl"), "a") if first
                    else contextlib.nullcontext())
-    with metrics_log as metrics_file, tracing:
+    with metrics_log as metrics_file, tracing, trace.enabled():
         for i in range(start, start + args.steps):
-            t_wait = time.perf_counter()
-            raw = next(batches)
-            summary["wait_s"].append(time.perf_counter() - t_wait)
-            before = kernels.counts()
-            if timed:
-                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-                ev[0].record()
+            with trace.span("step.wait"):
+                raw = next(batches)
+            before = launches()
             if profiling and i == start + 10:
                 prof = tracing.enter_context(profiler(device))
             batch = trainer.to_device(raw, device)
@@ -236,14 +243,12 @@ def run(args, device, mesh=None):
             augment = (step_generator(2000 + args.seed, i, device)
                        if cfg.augment_on_device else None)
             metrics = step_fn(state, batch, pairgen, augment)
-            if timed:
-                ev[1].record()
-                summary["events"].append(ev)
-            after = kernels.counts()
+            after = launches()
             summary["launches"].append(
                 {k: after[k] - before[k] for k in after})
+            drain(wait=False)
             if profiling and i == start + 15:
-                if timed:
+                if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 tracing.close()
                 summary["profile"] = write_trace(prof, logdir, i - 5, i)
@@ -260,14 +265,42 @@ def run(args, device, mesh=None):
                 path = trainer.save_checkpoint(
                     os.path.join(logdir, "ckpt"), state, i + 1)
                 log(f"saved {path}", flush=True)
-    if timed:
-        torch.cuda.synchronize(device)
+    drain(wait=True)
     summary["seconds"] = time.time() - t0
-    summary["step_ms"] = [a.elapsed_time(b)
-                          for a, b in summary.pop("events")] or None
+    summary["wait_s"] = [h / 1e3 for _, _, h, _ in
+                         sorted(spans.get("step.wait", []))]
+    steps = sorted(spans.get("step", []))
+    summary["step_ms"] = ([d for _, _, _, d in steps]
+                          if device.type == "cuda" else None)
+    summary["spans"] = span_summary(spans, steps)
     summary["metrics"] = ({k: float(v) for k, v in metrics.items()}
                           if args.steps else {})
     return summary
+
+
+def launches() -> dict:
+    """{kernel: launches so far}, from the trace's counters."""
+    return {k[len("launches."):]: n for k, n in trace.counters().items()
+            if k.startswith("launches.")}
+
+
+def span_summary(spans: dict, steps: list) -> dict:
+    """{span name: {"count", "in_step", "host_ms", "device_ms"}}: the
+    instances recorded, those inside a `step` span (host-time
+    containment), and the median ms of an instance on each clock (device
+    None off CUDA)."""
+    starts = [s for s, _, _, _ in steps]
+    out = {}
+    for name, recs in spans.items():
+        inside = 0
+        for s, e, _, _ in recs:
+            j = bisect.bisect_right(starts, s) - 1
+            inside += j >= 0 and e <= steps[j][1]
+        dev = [d for _, _, _, d in recs if d is not None]
+        out[name] = {"count": len(recs), "in_step": inside,
+                     "host_ms": statistics.median(h for _, _, h, _ in recs),
+                     "device_ms": statistics.median(dev) if dev else None}
+    return out
 
 
 if __name__ == "__main__":

@@ -51,6 +51,7 @@ import torch
 from torch import nn
 
 from dh3d_tpu_torch import config as cfglib
+from dh3d_tpu_torch import trace
 from dh3d_tpu_torch.config import dotdict
 from dh3d_tpu_torch.data.augment import draw_augment, torch_augment
 from dh3d_tpu_torch.data.pairgen import draw_local_pairs, local_pairs
@@ -242,11 +243,14 @@ def forward_loss(model: DH3D, cfg, batch: dict, group=None):
     (`trainer.py:147-211`).  With a `group`, `batch` is this rank's block
     and the losses run on the whole batch's outputs (`gather_outputs`).
     Returns (total loss, metrics, outs); outs are this rank's."""
-    outs = model(batch["points"], sample_inds=batch.get("sample_inds"))
+    points = batch["points"]
+    with trace.span("step.forward", points):
+        outs = model(points, sample_inds=batch.get("sample_inds"))
     if "R" in batch:
         outs["R"] = batch["R"]
-    whole = outs if group is None else gather_outputs(outs, cfg, group)
-    total, metrics = compute_total_loss(whole, cfg, kernel_l2(model))
+    with trace.span("step.loss", points):
+        whole = outs if group is None else gather_outputs(outs, cfg, group)
+        total, metrics = compute_total_loss(whole, cfg, kernel_l2(model))
     return total, metrics, outs
 
 
@@ -309,7 +313,9 @@ def make_train_step(cfg, group=None):
     batch's preparation on the device (`add_draws` from the two generators,
     `prepare_batch`), one forward in train mode, the losses, the backward
     and one optimizer update, in place on `state`.  The metrics are
-    detached scalar tensors (reading them syncs).
+    detached scalar tensors (reading them syncs).  Spans (`trace`): `step`,
+    and in it `step.prepare`, `step.forward`, `step.loss`, `step.backward`
+    and `step.optimizer`.
 
     With `group` (a `parallel.Mesh` or a process group) the step is data
     parallel (module docstring): every rank passes the whole batch and
@@ -321,17 +327,23 @@ def make_train_step(cfg, group=None):
     def train_step(state: TrainState, batch: dict,
                    pairgen: torch.Generator | None = None,
                    augment: torch.Generator | None = None) -> dict:
-        batch = add_draws(batch, cfg, pairgen, augment)
-        if group is not None:
-            batch = shard_step_batch(batch, cfg, group)
-        batch = prepare_batch(batch, cfg)
-        state.model.train()
-        sync_batchnorm(state.model, group)
-        total, metrics, _ = forward_loss(state.model, cfg, batch, group)
-        state.optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        apply_gradients(state, cfg, group)
-        return {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
+        where = batch["pc1"] if "pc1" in batch else batch["points"]
+        with trace.span("step", where):
+            with trace.span("step.prepare", where):
+                batch = add_draws(batch, cfg, pairgen, augment)
+                if group is not None:
+                    batch = shard_step_batch(batch, cfg, group)
+                batch = prepare_batch(batch, cfg)
+            state.model.train()
+            sync_batchnorm(state.model, group)
+            total, metrics, _ = forward_loss(state.model, cfg, batch, group)
+            with trace.span("step.backward", where):
+                state.optimizer.zero_grad(set_to_none=True)
+                total.backward()
+            with trace.span("step.optimizer", where):
+                apply_gradients(state, cfg, group)
+            return {k: torch.as_tensor(v).detach()
+                    for k, v in metrics.items()}
 
     return train_step
 

@@ -475,13 +475,19 @@ def _same_metrics(got, want):
 def test_train_num_devices_writes_what_one_process_writes(tmp_path):
     """`--num_devices 2 --device cpu` for 2 steps: the metrics of a
     one-process run (both write steps 0 and 1), its config and a
-    checkpoint; then each run's checkpoint resumes under the other kind
-    for step 2, and the two give the same metrics."""
+    checkpoint, and the collectives' spans inside each step; then each
+    run's checkpoint resumes under the other kind for step 2, and the two
+    give the same metrics."""
     one, two = tmp_path / "one", tmp_path / "two"
     s1 = train_main(_cli(one, "--steps", "2"))
     s2 = train_main(_cli(two, "--steps", "2", "--num_devices", "2"))
     _same_metrics(_metrics(two), _metrics(one))
     assert s2["steps"] == 2 and s2["metrics"].keys() == s1["metrics"].keys()
+    assert not any(k.startswith("collective.") for k in s1["spans"])
+    for op in ("all_reduce", "all_gather"):  # sync BN, gradients; outputs
+        got = s2["spans"][f"collective.{op}"]
+        assert got["count"] == got["in_step"] > 0 and got["count"] % 2 == 0
+    assert s2["spans"]["step"]["count"] == 2
     assert os.listdir(two / "ckpt") == ["step_00000002.pt"]
     with open(two / "config.json") as f, open(one / "config.json") as g:
         assert json.load(f) == json.load(g)
