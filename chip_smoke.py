@@ -96,7 +96,8 @@ result line:
      keypoints, `device_pairgen` and `morton_presorted`, prefetch 2),
      warm-started from `models/demo_stage2.npz`, 4 steps: one step launches
      B and A each exactly once more than phase 6's step (the pairs' FPS and
-     1-NN) and every other kernel as often; the pairs of its first batch,
+     1-NN) and every other kernel as often (but I, the prefetch thread's:
+     each run counts at least one launch of I a cloud it trained on); the pairs of its first batch,
      rebuilt on the card, hold (anchors unique, ids in range, pc2 back
      from R, positives the plain 1-NN); (b) the host pair path, 2 steps;
      (c) `global_config` with `models/demo_stage3.config.json`'s values
@@ -224,11 +225,25 @@ result line:
      (median of 3 further steps) of both ranks, of the one-process step
      and of the NCCL run, beside the card and its power limit: correctness
      runs (two ranks share one card), no measure of scaling.
+ 18. the loader's radius count, kernel I (`ops.radius_count`, the outlier
+     removal of `data.io.get_fixednum_pcd` on a card): against its plain
+     version and `cKDTree` bit for bit at the raw extraction's M (~27,800,
+     a 30,000-point scan through the voxel grid), at M = 16384 and on the
+     boundary cloud, with its device time, FP64 bound, plain time,
+     `cKDTree`'s host time and every key split at the first two M;
+     `remove_radius_outlier` on the card and on the host; the eval loader
+     over 6 scans yielding the clouds of the `cKDTree` path with one
+     launch a cloud, and its load a cloud both ways; the loader in the
+     prefetch thread not waiting for a sleep kernel on the default stream.
 The last three lines: the card, the kernels JSON, the ok JSON.
 
     python3 chip_smoke.py --parallel
 
-runs phases 1, 2 and 17 alone (no kernels line).
+runs phases 1, 2 and 17 alone (no kernels line), and
+
+    python3 chip_smoke.py --loader
+
+phases 1, 2 and 18.
 
 To compare two trees of the port on one card (run them in turns: parent,
 change, change, parent, in one call):
@@ -426,6 +441,14 @@ WINDOW_START_SHAPES = ((33024, 33024, 512), (32768, 32768, 512),
                        (2048, 256, 128))
 # Phase 14 (f): the error budget's pool: two sequences of 4 scans
 BUDGET = {"num_points": 8192, "per_sequence": 4}
+# Phase 18: kernel I's bound, its float64 instructions (3 subtractions, 3
+# products, 2 sums a pair) at 64 a clock an SM: the H100 SXM's 34 TFLOP/s
+# of FP64 on the CUDA cores counts an FMA as 2, so 17e12 such
+# instructions a second.  The key splits timed at the raw scan's M.
+FP64_INSTRUCTIONS_PER_S = 17e12
+RADIUS_FP64_PER_PAIR = 8
+RADIUS_PLANS = (1, 2, 4, 6, 8, 12, 16, 20, 24, 28, 32)
+RADIUS_LOADER_FILES = 6
 
 
 def log(*args):
@@ -1736,7 +1759,7 @@ def disk_run(torch, label, argv, clouds):
 def loader_ms_per_cloud(cfg, clouds):
     """Host ms a cloud of the second batch of a fresh `real_batches` stream
     of `cfg` (no prefetch; the first warms it up): load, normalise (the
-    radius outlier removal on `cKDTree`), augment, presort.  Returns it
+    radius outlier removal on the card, kernel I), augment, presort.  Returns it
     with the stream's first batch, the run's first."""
     from dh3d_tpu_torch.train.data import real_batches
 
@@ -1749,7 +1772,7 @@ def loader_ms_per_cloud(cfg, clouds):
 
 def loader_split(path, numpts):
     """Host ms of the loader's parts on one scan file (median of 3): the
-    read, the radius outlier removal alone (`cKDTree`), the whole
+    read, the radius outlier removal alone (on the card), the whole
     normalisation `get_fixednum_pcd` (the outlier removal, a random
     choice of `numpts`), the Jitter augmentation and the Morton presort of
     one normalised copy."""
@@ -1815,6 +1838,7 @@ def disk_phase(torch, T, work, train_launches, device):
     its logdir (`warm_start_runs`).  Returns (launches over one counted
     step of (a), the card's pairs of (a)'s first batch for phase 11,
     report)."""
+    from dh3d_tpu_torch import kernels
     from dh3d_tpu_torch.train import (add_draws, make_train_step,
                                       prepare_batch, to_device)
     from dh3d_tpu_torch.train.__main__ import (build_config, parse_args,
@@ -1857,12 +1881,19 @@ def disk_phase(torch, T, work, train_launches, device):
     report = {"loader_split_ms": split}
     for label, (_, clouds) in runs.items():
         cfg, first = cfgs[label], firsts[label]
+        counted = kernels.RADIUS_COUNT.launches
         report[label] = s = disk_run(torch, label, argvs[label], clouds)
         s["loader_ms_per_cloud"] = loaders[label]
+        # the prefetch thread's loader counts each copy's neighbours on
+        # the card (kernel I), as many times as the run loaded copies
+        s["loader_radius_counts"] = kernels.RADIUS_COUNT.launches - counted
+        assert s["loader_radius_counts"] >= clouds * s["steps"], s
         if label[0] == "a":
             launches = s["launches"][-1]
             log(f"  launches in one step from disk: {launches}")
             for name, n in train_launches.items():
+                if name == "radius_count":  # the loader's, not the step's
+                    continue
                 more = 1 if name in ("fps", "knn") else 0
                 assert launches[name] == n + more, \
                     (name, launches[name], n, more)
@@ -3331,7 +3362,137 @@ def parallel_phase(torch, kernels, device):
     return launches, report
 
 
-def main(only_parallel=False):
+def loader_counts_on_host(torch, fn):
+    """fn() with CUDA hidden from the loader: its outlier removal counts
+    with `cKDTree` on the host, as on a machine without a card."""
+    real = torch.cuda.is_available
+    torch.cuda.is_available = lambda: False
+    try:
+        return fn()
+    finally:
+        torch.cuda.is_available = real
+
+
+def radius_phase(torch, T, kernels, device):
+    """Phase 18: kernel I, the loader's radius count.  Returns its report.
+
+    (a) against its plain version and `cKDTree`, bit for bit, one launch a
+    call: the raw extraction's count input (a 30,000-point scan through the
+    voxel grid, M ~ 27,800), an eval cloud (M = 16384) and the boundary
+    cloud (`radius_boundary_cloud`); device ms, plain ms, the FP64 bound,
+    `cKDTree`'s host ms; at the first two every split of RADIUS_PLANS, each
+    equal.  (b) `remove_radius_outlier` on the raw scan, host ms on the
+    card and with `cKDTree`, the same indices.  (c) `LocalTestDataset` at
+    N=16384 over RADIUS_LOADER_FILES scans: the same clouds on the card
+    and with `cKDTree`, one launch a cloud (`launches.radius_count`), and
+    the load's host ms a cloud both ways.  (d) the loader in
+    `ThreadedPrefetcher`'s thread hands over its clouds while a ~2 s sleep
+    kernel queued on the default stream still runs."""
+    from scipy.spatial import cKDTree
+
+    from dh3d_tpu_torch import trace
+    from dh3d_tpu_torch.data import LocalTestDataset
+    from dh3d_tpu_torch.data import io
+    from dh3d_tpu_torch.data.prefetch import ThreadedPrefetcher
+    from dh3d_tpu_torch.data.synthetic import radius_boundary_cloud
+
+    def host_counts(cloud):
+        return cKDTree(cloud).query_ball_point(cloud, r=1.0,
+                                               return_length=True)
+
+    raw = io.voxel_downsample(lidar_like_scan(40))
+    report = {"cases": []}
+    for name, cloud in (("raw scan", raw), ("eval cloud", eval_cloud(41, 16384)),
+                        ("boundary", radius_boundary_cloud(0))):
+        pts = torch.from_numpy(cloud).to(device)
+        m = len(cloud)
+        before = kernels.RADIUS_COUNT.launches
+        got = T.radius_count(pts, 1.0)
+        torch.cuda.synchronize()
+        assert kernels.RADIUS_COUNT.launches == before + 1
+        plain = T.radius_count_plain(pts, 1.0)
+        assert torch.equal(got, plain), name
+        assert np.array_equal(got.cpu().numpy(), host_counts(cloud)), name
+        row = {"case": name, "m": m,
+               "plan": T.radius_plan(m, kernels.sm_count(device.index or 0)),
+               "ms": device_ms(torch, partial(T.radius_count, pts, 1.0)),
+               "plain_ms": device_ms(torch, partial(T.radius_count_plain,
+                                                    pts, 1.0), reps=3),
+               "bound_ms": 1e3 * m * m * RADIUS_FP64_PER_PAIR
+               / FP64_INSTRUCTIONS_PER_S,
+               "ckdtree_host_ms": host_ms(partial(host_counts, cloud), 3)}
+        if name != "boundary":
+            row["plans_ms"] = {}
+            for plan in RADIUS_PLANS:
+                fn = partial(T.radius_count, pts, 1.0, plan=plan)
+                assert torch.equal(fn(), plain), plan
+                row["plans_ms"][plan] = device_ms(torch, fn)
+        log(f"  radius_count {name} M={m} plan {row['plan']}: kernel "
+            f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f}, bound "
+            f"{row['bound_ms']:.3f} (FP64), cKDTree (host) "
+            f"{row['ckdtree_host_ms']:.1f}"
+            + (f"; splits {row['plans_ms']}" if "plans_ms" in row else ""))
+        report["cases"].append(row)
+
+    keep = io.remove_radius_outlier(raw)
+    assert np.array_equal(keep, loader_counts_on_host(
+        torch, partial(io.remove_radius_outlier, raw)))
+    report["outlier_removal_host_ms"] = {
+        "card": host_ms(partial(io.remove_radius_outlier, raw), 5),
+        "ckdtree": loader_counts_on_host(torch, partial(
+            host_ms, partial(io.remove_radius_outlier, raw), 5))}
+    log(f"  remove_radius_outlier on the raw scan (host ms): "
+        f"{report['outlier_removal_host_ms']}")
+
+    with tempfile.TemporaryDirectory() as work:
+        for i in range(RADIUS_LOADER_FILES):
+            io.write_to_bin(lidar_like_scan(60 + i),
+                            os.path.join(work, f"{i:03d}.bin"))
+
+        def load():
+            ds = LocalTestDataset(work, numpts=16384, knn_require=0, dim=3)
+            out, ms, t0 = [], [], time.perf_counter()
+            for item in ds:
+                ms.append(1e3 * (time.perf_counter() - t0))
+                out.append(item)
+                t0 = time.perf_counter()
+            return out, statistics.median(ms)
+
+        load()  # warm
+        before = trace.counters()["launches.radius_count"]
+        card, card_ms = load()
+        assert (trace.counters()["launches.radius_count"]
+                == before + RADIUS_LOADER_FILES)
+        host, host_ms_ = loader_counts_on_host(torch, load)
+        for a, b in zip(card, host):
+            assert a[1:] == b[1:] and np.array_equal(a[0], b[0]), a[1]
+        report["load_ms_a_cloud"] = {"card": card_ms, "ckdtree": host_ms_}
+        log(f"  LocalTestDataset N=16384, {RADIUS_LOADER_FILES} scans: the "
+            f"same clouds, one launch a cloud; load ms a cloud (median) "
+            f"{report['load_ms_a_cloud']}")
+
+        torch.cuda.synchronize()
+        busy = torch.cuda.Event()
+        torch.cuda._sleep(4_000_000_000)
+        busy.record()
+        t0 = time.perf_counter()
+        ds = LocalTestDataset(work, numpts=16384, knn_require=0, dim=3)
+        items = list(ThreadedPrefetcher(iter(ds), depth=1))
+        seconds = time.perf_counter() - t0
+        still_busy = not busy.query()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        report["prefetch"] = {"loader_s": seconds,
+                              "sleep_left_s": time.perf_counter() - t1,
+                              "overlapped": still_busy}
+        log(f"  the prefetch thread's loader beside a sleep kernel on the "
+            f"default stream: {report['prefetch']}")
+        assert len(items) == RADIUS_LOADER_FILES and still_busy, \
+            report["prefetch"]
+    return report
+
+
+def main(only_parallel=False, only_loader=False):
     import torch
 
     if not torch.cuda.is_available():
@@ -3361,6 +3522,11 @@ def main(only_parallel=False):
         log("phase 17: the parallel path")
         _, report = parallel_phase(torch, kernels, device)
         log(json.dumps({"parallel": report}))
+        log(card_line())
+        return
+    if only_loader:
+        log("phase 18: the loader's radius count (kernel I)")
+        log(json.dumps({"radius": radius_phase(torch, T, kernels, device)}))
         log(card_line())
         return
 
@@ -3537,6 +3703,9 @@ def main(only_parallel=False):
     parallel_report["seconds"] = time.perf_counter() - t17
     log(f"  phase 17: {parallel_report['seconds']:.1f} s")
 
+    log("phase 18: the loader's radius count (kernel I)")
+    radius_report = radius_phase(torch, T, kernels, device)
+
     # `launches`: the count from this slice's path (phase 17 (b): one rank
     # of the data-parallel detection step) for A-G, from the bf16 forward
     # and step for the bf16 cases, from the legacy forward for H
@@ -3580,6 +3749,7 @@ def main(only_parallel=False):
                                      "curriculum": curriculum_report}}))
     log(json.dumps({"bf16": {"seconds": bf16_seconds, **bf16_report}}))
     log(json.dumps({"parallel": parallel_report}))
+    log(json.dumps({"radius": radius_report}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": kernel_rows}))
@@ -3877,6 +4047,8 @@ if __name__ == "__main__":
         main()
     elif sys.argv[1:] == ["--parallel"]:
         main(only_parallel=True)
+    elif sys.argv[1:] == ["--loader"]:
+        main(only_loader=True)
     else:
         import argparse
 

@@ -3,18 +3,25 @@ of `dh3d_tpu/data/io.py:16-168`).
 
 Voxel downsampling and radius-outlier removal are the numpy / `cKDTree`
 versions of open3d's, with the reference's parameters (`core/utils.py:165-177`:
-voxel 0.2 m; outlier nb_points=4, r=1.0).  The JAX package's optional C++
-helper (`dh3d_tpu/native.py`) is not ported: its voxel order differs from
-numpy's.
+voxel 0.2 m; outlier nb_points=4, r=1.0).  Where a CUDA device is present
+the outlier removal counts the neighbours there instead, with kernel I
+(`ops.radius_count`), which gives `cKDTree`'s counts bit for bit.  The JAX
+package's optional C++ helper (`dh3d_tpu/native.py`) is not ported: its
+voxel order differs from numpy's.
 """
 
 from __future__ import annotations
 
 import pickle
+import threading
 
 import numpy as np
+import torch
 
 from dh3d_tpu_torch import trace
+from dh3d_tpu_torch.ops.radius import radius_count
+
+_streams = threading.local()
 
 
 def load_single_pcfile(filename, dim=3, dtype=np.float32):
@@ -56,14 +63,40 @@ def voxel_downsample(points, voxel_size=0.2):
     return (sums / counts[:, None]).astype(np.float32)
 
 
-def remove_radius_outlier(points, nb_points=4, radius=1.0):
-    """Indices of points with >= nb_points neighbours (self excluded) within
-    `radius`: open3d's `remove_radius_outlier` (`core/utils.py:173-177`)."""
+def loader_stream(device: torch.device) -> torch.cuda.Stream:
+    """The calling thread's own stream on `device`, made at first use: the
+    loader's copies and kernels run there, so that waiting for them does
+    not wait for the work other threads queue on the default stream (the
+    train step's, while the prefetch thread loads)."""
+    streams = vars(_streams).setdefault("by_device", {})
+    if device not in streams:
+        streams[device] = torch.cuda.Stream(device)
+    return streams[device]
+
+
+def radius_counts(points, radius):
+    """For every point of `points` [M, 3], the points within `radius` of it,
+    itself included: `cKDTree.query_ball_point(..., return_length=True)`.
+    A float32 cloud, where a CUDA device is present, is counted there by
+    kernel I on the thread's `loader_stream` of the current device, and
+    only the counts come back; otherwise on the host by `cKDTree`.  Both
+    give the same counts."""
+    if points.dtype == np.float32 and torch.cuda.is_available():
+        device = torch.device("cuda", torch.cuda.current_device())
+        with torch.cuda.stream(loader_stream(device)):
+            pts = torch.from_numpy(np.ascontiguousarray(points)).to(device)
+            return radius_count(pts, radius).cpu().numpy()
     from scipy.spatial import cKDTree
 
-    tree = cKDTree(points)
-    counts = tree.query_ball_point(points, r=radius, return_length=True)
-    return np.where(counts - 1 >= nb_points)[0]
+    return cKDTree(points).query_ball_point(points, r=radius,
+                                            return_length=True)
+
+
+def remove_radius_outlier(points, nb_points=4, radius=1.0):
+    """Indices of points with >= nb_points neighbours (self excluded) within
+    `radius`: open3d's `remove_radius_outlier` (`core/utils.py:173-177`),
+    the neighbours counted by `radius_counts`."""
+    return np.where(radius_counts(points, radius) - 1 >= nb_points)[0]
 
 
 def get_fixednum_pcd(cloud, targetnum, randsample=True, need_downsample=False,

@@ -56,3 +56,49 @@ def lidar_like_scan(seed: int, n_points: int = 30000,
     cloud = np.concatenate([ground, *boxes, air])
     cloud += rng.randn(*cloud.shape) * 0.02  # sensor jitter
     return cloud[rng.permutation(len(cloud))].astype(np.float32)
+
+
+
+def radius_boundary_cloud(seed: int = 0, radius: float = 1.0,
+                          pairs: int = 60) -> np.ndarray:
+    """[2 * (3 + pairs), 3] float32: pairs of points at the boundary of the
+    radius count (`ops.radius_count`, the loader's outlier removal), each
+    pair about its own origin 5 radii from the next, so that every count is
+    1 or 2.
+
+    First three pairs along x: exactly `radius` apart, one float32 step
+    beyond it and one short of it.  Then `pairs` pairs at `radius` in
+    random directions, rounded to float32; the first half are drawn among
+    those whose squared distance in float32 arithmetic falls on the other
+    side of radius**2 than in float64 (where the count decides it), the
+    rest among those where both agree."""
+    rng = np.random.RandomState(seed)
+    r = np.float32(radius)
+    k = np.arange(3 + pairs)
+    grid = (5 * radius * np.stack([k % 8, (k // 8) % 8, k // 64], axis=1)
+            ).astype(np.float32)
+    first, second = grid.copy(), grid.copy()
+    second[:3, 0] += r
+    second[1, 0] = np.nextafter(second[1, 0], np.float32(np.inf))
+    second[2, 0] = np.nextafter(second[2, 0], np.float32(-np.inf))
+
+    tries = 500
+    p = (grid[3:, None] + rng.uniform(-radius / 2, radius / 2,
+                                      (pairs, tries, 3))).astype(np.float32)
+    u = rng.randn(pairs, tries, 3)
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    q = (p.astype(np.float64) + radius * u).astype(np.float32)
+    d = q.astype(np.float64) - p.astype(np.float64)
+    d64 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+    e = q - p
+    d32 = (e[..., 0] * e[..., 0] + e[..., 1] * e[..., 1]) + e[..., 2] * e[..., 2]
+    split = (d32 <= r * r) != (d64 <= float(radius) ** 2)
+    want = np.arange(pairs)[:, None] < pairs // 2
+    hit = split == want
+    if not hit.any(axis=1).all():
+        raise ValueError(f"no boundary pair of the kind wanted in {tries} "
+                         f"draws")
+    pick = np.argmax(hit, axis=1)
+    first[3:] = p[np.arange(pairs), pick]
+    second[3:] = q[np.arange(pairs), pick]
+    return np.concatenate([first, second])

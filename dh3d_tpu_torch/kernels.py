@@ -35,7 +35,7 @@ PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "kernels")
 SOURCES = ("knn.cu", "knn_topk.cu", "knn_window.cu", "fps.cu",
-           "neighborhood.cu")
+           "neighborhood.cu", "radius.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -43,6 +43,7 @@ _lock = threading.Lock()
 _library = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 CUDA_ERROR_INVALID_VALUE = 1  # cudaErrorInvalidValue
 
 
@@ -200,9 +201,13 @@ FLEX_MOMENTS_BWD_BF16 = Kernel(
     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I])
 NEIGHBOR_MAX_BWD = Kernel("neighbor_max_backward", "dh3d_neighbor_max_bwd",
                           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I])
+# I: the loader's radius count: M, the radius, then the plan (the key split)
+RADIUS_COUNT = Kernel("radius_count", "dh3d_radius_count",
+                      [_P, _P, _I, _D, _I])
 KERNELS = (KNN, KNN_TOPK, KNN_WINDOW, FPS, WEIGHTED_SUM, FLEX_MOMENTS,
            FLEX_MOMENTS_BF16, NEIGHBOR_MAX, WEIGHTED_SUM_BWD,
-           FLEX_MOMENTS_BWD, FLEX_MOMENTS_BWD_BF16, NEIGHBOR_MAX_BWD)
+           FLEX_MOMENTS_BWD, FLEX_MOMENTS_BWD_BF16, NEIGHBOR_MAX_BWD,
+           RADIUS_COUNT)
 
 
 def reset_counts() -> None:

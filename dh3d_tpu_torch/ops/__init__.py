@@ -12,8 +12,10 @@ window; its band starts `win_start`, its launch plan `window_plan`),
 `flex_moments` (and `flex_conv` on it) with its backward
 `flex_moments_backward` (and `flex_deconv` on it), `neighbor_max` (and
 `flex_pool`) with its backward `neighbor_max_backward` (launch plan of
-the three forwards: `row_plan`); `NeighborInverse` shares the CSR inverse
-those backwards read among the ops over one neighbourhood.  Plain
+the three forwards: `row_plan`), `radius_count` (the loader's outlier
+removal, kernel I; launch plan `radius_plan`); `NeighborInverse` shares
+the CSR inverse those backwards read among the ops over one
+neighbourhood.  Plain
 PyTorch, as in the JAX package: `group_point`, the ball queries,
 `select_top_k`, `prob_sample`, the gathers and the Morton order.
 """
@@ -70,6 +72,11 @@ from dh3d_tpu_torch.ops.neighborhood import (
     weighted_sum_backward_plain,
     weighted_sum_plain,
 )
+from dh3d_tpu_torch.ops.radius import (
+    radius_count,
+    radius_count_plain,
+    radius_plan,
+)
 from dh3d_tpu_torch.ops.sampling import (
     farthest_point_sample,
     fps_plain,
@@ -91,7 +98,8 @@ __all__ = [
     "morton_codes", "morton_perm", "neighbor_max", "neighbor_max_backward",
     "neighbor_max_backward_plain", "neighbor_max_plain",
     "neighbor_max_with_slot", "prob_sample", "query_ball_point",
-    "query_ball_point2", "row_plan", "select_top_k", "subsample",
+    "query_ball_point2", "radius_count", "radius_count_plain", "radius_plan",
+    "row_plan", "select_top_k", "subsample",
     "three_interpolate", "three_nn", "weighted_sum", "weighted_sum_backward",
     "weighted_sum_backward_plain", "weighted_sum_plain", "win_start",
     "window_plan",

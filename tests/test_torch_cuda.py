@@ -28,14 +28,22 @@ must equal its plain version exactly, self and cross, at each list length
 it compiles and at every launch plan (lanes a query, `plan=`), on random,
 integer-grid and duplicated clouds, at the band's edges and with NaN
 rows; its entry point refuses sizes itself; the legacy forward launches it once and
-matches the CPU's.
+matches the CPU's.  Kernel I (the loader's radius count) must equal its
+plain version exactly on the CPU tests' cases (`test_torch_radius.py`)
+and on a raw scan at the extraction's size, at every split, and there
+also `cKDTree`; the eval loader on the card launches it once a cloud and
+yields the clouds of the `cKDTree` path, and it does not wait for work
+queued on the default stream.
 """
 
 import importlib
+import os
+import time
 
 import numpy as np
 import pytest
 import torch
+from test_torch_radius import RADIUS_CASES, radius_case
 
 from dh3d_tpu_torch import kernels
 from dh3d_tpu_torch import ops as T
@@ -1259,3 +1267,99 @@ def test_dp_step_on_a_group_of_one_equals_one_process(nccl_mesh):
         scale = top * 1e-1 if n in zero else v.abs().max().item()
         assert (g2[n] - v).abs().max().item() <= 1e-4 * scale, n
     assert c1 == c2 and c1["knn_topk"] > 0
+
+
+# ---------------- kernel I: the loader's radius count ----------------
+
+def _raw_scan_cloud(seed):
+    """The raw extraction's count input: a 30,000-point lidar-like scan
+    through the 0.2 m voxel grid (M ~ 27,800)."""
+    from dh3d_tpu_torch.data.io import voxel_downsample
+    from dh3d_tpu_torch.data.synthetic import lidar_like_scan
+
+    return voxel_downsample(lidar_like_scan(seed))
+
+
+@pytest.mark.parametrize("case", RADIUS_CASES + ("raw_scan",))
+def test_radius_count_equals_plain(device, case):
+    """Kernel I, bit for bit, at `radius_plan`'s split and at forced ones
+    (1, and more blocks than tiles), one launch a call; the raw scan also
+    against `cKDTree`."""
+    if case == "raw_scan":
+        cloud, radius = _raw_scan_cloud(5), 1.0
+    else:
+        cloud, radius = radius_case(case)
+    pts = torch.from_numpy(cloud)
+    want = T.radius_count_plain(pts.to(device), radius).cpu()
+    assert torch.equal(want, T.radius_count(pts, radius))  # CPU plain
+    for plan in (None, 1, 7, 64):
+        got = _counted(kernels.RADIUS_COUNT, T.radius_count, pts.to(device),
+                       radius, plan=plan)
+        assert torch.equal(got.cpu(), want), plan
+    if case == "raw_scan":
+        from scipy.spatial import cKDTree
+
+        np.testing.assert_array_equal(want.numpy(), cKDTree(cloud)
+                                      .query_ball_point(cloud, r=radius,
+                                                        return_length=True))
+
+
+def _write_scans(directory, count):
+    from dh3d_tpu_torch.data.io import write_to_bin
+    from dh3d_tpu_torch.data.synthetic import lidar_like_scan
+
+    for i in range(count):
+        write_to_bin(lidar_like_scan(20 + i),
+                     os.path.join(directory, f"{i:03d}.bin"))
+
+
+def test_local_test_dataset_on_card_equals_ckdtree_path(device, tmp_path,
+                                                        monkeypatch):
+    """`LocalTestDataset` at the extraction CLI's N counts on the card,
+    one launch of kernel I a cloud (`launches.radius_count`), and yields
+    exactly the clouds of the `cKDTree` path (the same loader with CUDA
+    hidden) over 3 files."""
+    from dh3d_tpu_torch import trace
+    from dh3d_tpu_torch.data import LocalTestDataset
+
+    _write_scans(str(tmp_path), 3)
+
+    def clouds():
+        ds = LocalTestDataset(str(tmp_path), numpts=16384, knn_require=0,
+                              dim=3)
+        return [(item[0], item[2]) for item in ds]
+
+    before = trace.counters()["launches.radius_count"]
+    card = clouds()
+    assert trace.counters()["launches.radius_count"] == before + 3
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        host = clouds()
+    assert trace.counters()["launches.radius_count"] == before + 3
+    for (a, na), (b, nb) in zip(card, host):
+        assert na == nb and np.array_equal(a, b)
+
+
+def test_loader_does_not_wait_for_the_default_stream(device, tmp_path):
+    """A loader in `ThreadedPrefetcher`'s thread counts on its own stream:
+    it hands over a cloud while a long kernel queued on the default stream
+    (a train step's place) is still running."""
+    from dh3d_tpu_torch.data import LocalTestDataset
+    from dh3d_tpu_torch.data.prefetch import ThreadedPrefetcher
+
+    _write_scans(str(tmp_path), 2)
+    ds = LocalTestDataset(str(tmp_path), numpts=16384, knn_require=0, dim=3)
+    next(iter(ds))  # warm: the library loaded, the loader's stream made
+    torch.cuda.synchronize()
+    busy = torch.cuda.Event()
+    torch.cuda._sleep(4_000_000_000)  # ~2 s at the H100's clock
+    busy.record()
+    launches = kernels.RADIUS_COUNT.launches
+    t0 = time.perf_counter()
+    items = list(ThreadedPrefetcher(iter(ds), depth=1))
+    seconds = time.perf_counter() - t0
+    still_busy = not busy.query()
+    torch.cuda.synchronize()
+    assert len(items) == 2 and kernels.RADIUS_COUNT.launches == launches + 2
+    assert still_busy, f"the loader waited for the default stream " \
+                       f"({seconds:.2f} s)"

@@ -380,6 +380,7 @@ def test_cpu_path_never_builds_or_counts(cloud, knn8):
     T.flex_moments(f, _t(cloud), _t(knn8)).sum().backward()  # C and E on pos
     fb = _t(cloud).to(torch.bfloat16).requires_grad_()
     T.flex_moments(fb, _t(cloud), _t(knn8)).sum().backward()  # bf16 cases
+    T.radius_count(_t(cloud[0]), 1.0)  # kernel I's plain version
     assert kernels.counts() == {"knn": 0, "knn_topk": 0, "knn_window": 0,
                                 "fps": 0,
                                 "weighted_sum": 0, "flex_moments": 0,
@@ -388,7 +389,8 @@ def test_cpu_path_never_builds_or_counts(cloud, knn8):
                                 "weighted_sum_backward": 0,
                                 "flex_moments_backward": 0,
                                 "flex_moments_backward_bf16": 0,
-                                "neighbor_max_backward": 0}
+                                "neighbor_max_backward": 0,
+                                "radius_count": 0}
     assert kernels._library is None
     path = kernels.library_path()
     assert path.startswith(kernels.BUILD_DIR) and path.endswith(".so")
