@@ -126,7 +126,10 @@ class DH3D(nn.Module):
         neighbour ids in the input order; sample_inds optional
         [B, sampled_kpnum] keypoint ids.  Returns the `outs` dict.  Spans
         (`trace`): `model.forward`, and in it `model.morton` (the Z-order
-        sort and the row gathers it feeds)."""
+        sort and the row gathers it feeds), `model.backbone` (the local
+        backbone and the level cache it hands on) and, with
+        `extract_global`, `model.global` (`global_backbone`, `globalatt`
+        and `global_assemble`)."""
         with trace.span("model.forward", points):
             return self._forward(points, knn_inds, sample_inds)
 
@@ -166,21 +169,24 @@ class DH3D(nn.Module):
 
         outs = {"xyz": unpermute(points), "knn_indices": knn_inds}
 
-        if cfg.remat and self.training and torch.is_grad_enabled():
-            # recompute the backbone in the backward (`nn.remat`), its
-            # BatchNorms then leaving their running statistics alone
-            newpoints, localdesc, level_cache = checkpoint(
-                self.local_backbone, points, knn_inds, use_reentrant=False,
-                context_fn=lambda: (contextlib.nullcontext(),
-                                    frozen_statistics(self.local_backbone)))
-        else:
-            newpoints, localdesc, level_cache = self.local_backbone(
-                points, knn_inds)
-        if not self.share_level:
-            level_cache = None
-        elif (cfg.knn_num or 8) != 8:  # stage 2's kNN is knn8
-            level_cache = {k: v for k, v in level_cache.items()
-                           if k in ("kp_idx", "interp")}
+        with trace.span("model.backbone", points):
+            if cfg.remat and self.training and torch.is_grad_enabled():
+                # recompute the backbone in the backward (`nn.remat`), its
+                # BatchNorms then leaving their running statistics alone
+                newpoints, localdesc, level_cache = checkpoint(
+                    self.local_backbone, points, knn_inds,
+                    use_reentrant=False,
+                    context_fn=lambda: (
+                        contextlib.nullcontext(),
+                        frozen_statistics(self.local_backbone)))
+            else:
+                newpoints, localdesc, level_cache = self.local_backbone(
+                    points, knn_inds)
+            if not self.share_level:
+                level_cache = None
+            elif (cfg.knn_num or 8) != 8:  # stage 2's kNN is knn8
+                level_cache = {k: v for k, v in level_cache.items()
+                               if k in ("kp_idx", "interp")}
         localdesc_l2 = l2_normalize(localdesc, dim=-1, epsilon=1e-8)
         outs["feat"] = unpermute(localdesc)
         outs["local_desc"] = unpermute(localdesc_l2)
@@ -207,19 +213,20 @@ class DH3D(nn.Module):
                 outs["att_sampled"] = ops.gather_point(det_att, kp_idx)[..., 0]
 
         if cfg.extract_global:
-            if self.share_level:
-                gpoints, forglobal = self.global_backbone(
-                    newpoints, localdesc, level_cache=level_cache)
-            else:
-                gpoints, forglobal = self.global_backbone(newpoints,
-                                                          localdesc)
-            if cfg.global_subsample and cfg.global_subsample > 0:
-                gpoints, forglobal, _ = ops.subsample(
-                    gpoints, forglobal, cfg.global_subsample)
-            global_att = self.globalatt(forglobal)
-            globaldesc = self.global_assemble(forglobal, global_att)
-            outs["global_desc"] = l2_normalize(globaldesc, dim=-1,
-                                               epsilon=1e-8)
+            with trace.span("model.global", points):
+                if self.share_level:
+                    gpoints, forglobal = self.global_backbone(
+                        newpoints, localdesc, level_cache=level_cache)
+                else:
+                    gpoints, forglobal = self.global_backbone(newpoints,
+                                                              localdesc)
+                if cfg.global_subsample and cfg.global_subsample > 0:
+                    gpoints, forglobal, _ = ops.subsample(
+                        gpoints, forglobal, cfg.global_subsample)
+                global_att = self.globalatt(forglobal)
+                globaldesc = self.global_assemble(forglobal, global_att)
+                outs["global_desc"] = l2_normalize(globaldesc, dim=-1,
+                                                   epsilon=1e-8)
         return outs
 
 

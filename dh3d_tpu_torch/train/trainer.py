@@ -314,8 +314,10 @@ def make_train_step(cfg, group=None):
     `prepare_batch`), one forward in train mode, the losses, the backward
     and one optimizer update, in place on `state`.  The metrics are
     detached scalar tensors (reading them syncs).  Spans (`trace`): `step`,
-    and in it `step.prepare`, `step.forward`, `step.loss`, `step.backward`
-    and `step.optimizer`.
+    and in it `step.prepare`, `step.forward` (the model's spans inside:
+    `model.forward`, `model.morton`, `model.backbone`, `model.global`;
+    `DH3D.forward`), `step.loss`, `step.backward` (`csr_inverse` where it
+    builds a CSR inverse, on autograd's thread) and `step.optimizer`.
 
     With `group` (a `parallel.Mesh` or a process group) the step is data
     parallel (module docstring): every rank passes the whole batch and
