@@ -235,6 +235,11 @@ result line:
      over 6 scans yielding the clouds of the `cKDTree` path with one
      launch a cloud, and its load a cloud both ways; the loader in the
      prefetch thread not waiting for a sleep kernel on the default stream.
+ 19. train-mode BatchNorm + relu, kernel J (`ops.batch_norm_train`), at
+     the train steps' shapes: its device time forward and forward +
+     backward beside its byte bound (3 passes forward, 5 backward), the
+     plain version's and `F.batch_norm` + relu's (`library_ms`); the same
+     bits twice, close to the plain version.
 The last three lines: the card, the kernels JSON, the ok JSON.
 
     python3 chip_smoke.py --parallel
@@ -322,13 +327,16 @@ WSUM_REL = 1e-5
 TRAIN_LOSS_REL = 1e-4
 TRAIN_GRAD_REL = 1e-3
 # Phase 17, the data-parallel step against the one-process step on the
-# card.  The two differ only in the order of f32 sums (sync BatchNorm's sum
-# over the ranks in place of one mean, the gradient all-reduce).  At full
-# width that order alone moves some gradients by more than phase 7's
-# limits: the one-process step on the same batch with its tuples (pairs)
-# in reverse order, the same function, moved the attention block's BN bias
-# gradient by 2.0e-3 of its scale (global_config) and a backbone BN bias's
-# by 1.2e-3 (detection_config), and the mined loss by 1.7e-5 of itself.
+# card.  The two differ only in the order of f32 sums (the gradient
+# all-reduce, a GEMM's weight gradient over a rank's rows; kernel J's
+# BatchNorm sums are exact to f64 rounding, so its statistics do not
+# depend on how the rows are split).  At full width that order alone can
+# move some gradients by more than phase 7's limits: with PyTorch's f32
+# BatchNorm sums, the one-process step on the same batch with its tuples
+# (pairs) in reverse order, the same function, moved the attention block's
+# BN bias gradient by 2.0e-3 of its scale (global_config) and a backbone
+# BN bias's by 1.2e-3 (detection_config), and the mined loss by 1.7e-5 of
+# itself.
 # So each kind of difference is held to the larger of its limit below and
 # twice that order noise, measured in the same run (`step_errors` of the
 # reversed batch): metrics TRAIN_LOSS_REL of the total, gradients
@@ -411,13 +419,16 @@ CHAIN_FLOOR_PLANS = ((1, 128), (1, 256), (1, 1024), (2, 128), (4, 128),
 # the forward (phase 4) runs A-D and G (A the 3-NN, G the self kNN k=8;
 # C through both its entry points: on weights and,
 # for the flex-conv moments, on positions); the train step (phase 6) A-G
-# (E likewise); the local extraction with NMS (phase 8) A-D and G
+# (E likewise) and J's four passes (train-mode BatchNorm, which an eval
+# forward never launches); the local extraction with NMS (phase 8) A-D and G
 FORWARD_KERNELS = ("knn", "knn_topk", "fps", "weighted_sum", "flex_moments",
                    "neighbor_max")
 EXTRACT_KERNELS = FORWARD_KERNELS
+BATCHNORM_KERNELS = ("batch_norm_stats", "batch_norm_forward",
+                     "batch_norm_grad_sums", "batch_norm_grad_dx")
 TRAIN_KERNELS = FORWARD_KERNELS + ("weighted_sum_backward",
                                    "flex_moments_backward",
-                                   "neighbor_max_backward")
+                                   "neighbor_max_backward") + BATCHNORM_KERNELS
 # the bf16 compute_dtype (phase 16) takes the bf16 cases of C and E on the
 # positions instead of the f32 ones
 BF16_CASES = {"flex_moments": "flex_moments_bf16",
@@ -3492,6 +3503,109 @@ def radius_phase(torch, T, kernels, device):
     return report
 
 
+# Phase 19: kernel J at the main path's train-mode BatchNorm shapes (the
+# card tests' BN_SHAPES): stage 2's nine widths over 163840 points and two
+# over 20480, stage 3's head over 196608 points and its 24 descriptors
+BATCHNORM_SHAPES = ((163840, 32), (163840, 64), (163840, 128), (163840, 256),
+                    (163840, 1024), (20480, 128), (196608, 1024),
+                    (196608, 64), (24, 256))
+BATCHNORM_PASSES = {"forward": 3, "backward": 5}  # [rows, C] f32 passes
+
+
+def batchnorm_phase(torch, T, kernels, device):
+    """Phase 19: kernel J, train-mode BatchNorm + relu.  Returns its report.
+
+    At each of BATCHNORM_SHAPES, with the relu (as every caller on the
+    path but NetVLAD's three asks): J's forward (`fwd_ms`) and forward +
+    backward (`ms`) as device time, each entry point launched once a call;
+    the byte bound (3 passes of [rows, C] f32 forward, 5 backward, at 3.35
+    TB/s); the plain version (`ops.batch_norm_plain` with autograd's
+    backward) and, as `library_ms`, `F.batch_norm(training=True)` + relu
+    (cuDNN; the port never calls it), both forward + backward.  J must give
+    the same bits twice, and its output and gradients must be within 1e-5
+    (output) and 1e-4 (gradients) of the plain version's largest value, on
+    inputs with no normalised value within 1e-3 of 0 (where rounding could
+    flip the relu's gradient between the two)."""
+    import torch.nn.functional as F
+
+    report = {"cases": []}
+    for rows, C in BATCHNORM_SHAPES:
+        g = torch.Generator(device=device).manual_seed(rows + C)
+        x = torch.randn(rows, C, device=device, generator=g) * 2 + 1
+        dy = torch.randn(rows, C, device=device, generator=g)
+        scale = torch.rand(C, device=device, generator=g) + 0.5
+        bias = torch.randn(C, device=device, generator=g)
+        # x whose normalised value lies within 1e-3 of 0 moved 2e-3 / mul
+        # away, so that rounding flips no relu gradient between versions
+        xd = x.double()
+        mean = xd.mean(0)
+        mul = torch.rsqrt((xd * xd).mean(0) - mean * mean + 1e-5) * scale
+        y = (xd - mean) * mul + bias
+        x = torch.where(y.abs() < 1e-3,
+                        xd + torch.where(y >= 0, 2e-3, -2e-3) / mul,
+                        xd).float()
+        del xd, y
+        xg, sg, bg = (t.clone().requires_grad_() for t in (x, scale, bias))
+
+        def call(fn, backward=True):
+            """y and, with `backward`, the gradients of x, scale and bias
+            (returned, not accumulated: no pass over x.grad)."""
+            stats = (torch.zeros(C, device=device),
+                     torch.ones(C, device=device))
+            y = fn(xg, sg, bg, *stats)
+            if backward:
+                return [y, *torch.autograd.grad(y, (xg, sg, bg), dy)]
+            return [y]
+
+        ours = partial(T.batch_norm_train, momentum=0.9, eps=1e-5, relu=True)
+        plain = partial(T.batch_norm_plain, momentum=0.9, eps=1e-5,
+                        relu=True)
+
+        def library(x_, s_, b_, *_):
+            return torch.relu(F.batch_norm(x_, None, None, s_, b_,
+                                           training=True, eps=1e-5))
+
+        outs = []
+        for fn in (ours, ours, plain):
+            before = kernels.counts()
+            outs.append([t.detach() for t in call(fn)])
+            torch.cuda.synchronize()
+            launched = {k: kernels.counts()[k] - before[k]
+                        for k in BATCHNORM_KERNELS}
+            assert set(launched.values()) == ({1} if fn is ours else {0}), \
+                launched
+        for a, b in zip(outs[0], outs[1]):
+            assert torch.equal(a, b), (rows, C)
+        errs = [((a - p).abs().max() / p.abs().max()).item()
+                for a, p in zip(outs[0], outs[2])]
+        assert errs[0] <= 1e-5 and max(errs[1:]) <= 1e-4, (rows, C, errs)
+        nbytes_pass = rows * C * 4
+        with torch.no_grad():
+            fwd_ms = device_ms(torch, partial(call, ours, False))
+        row = {"rows": rows, "C": C,
+               "plan": list(T.bn_plan(rows, C,
+                                      kernels.sm_count(device.index or 0))),
+               "fwd_ms": fwd_ms,
+               "ms": device_ms(torch, partial(call, ours)),
+               "fwd_bound_ms": BATCHNORM_PASSES["forward"] * nbytes_pass
+               / MEMORY_BYTES_PER_S * 1e3,
+               "bound_ms": sum(BATCHNORM_PASSES.values()) * nbytes_pass
+               / MEMORY_BYTES_PER_S * 1e3,
+               "plain_ms": device_ms(torch, partial(call, plain), reps=3),
+               "library_ms": device_ms(torch, partial(call, library),
+                                       reps=3),
+               "rel_err_vs_plain": errs}
+        log(f"  batch_norm [{rows}, {C}] plan {row['plan']}: J "
+            f"{row['ms']:.3f} ms (forward {row['fwd_ms']:.3f}), bound "
+            f"{row['bound_ms']:.3f} (forward {row['fwd_bound_ms']:.3f}), "
+            f"plain {row['plain_ms']:.3f}, library {row['library_ms']:.3f};"
+            f" relative gaps to plain {errs}")
+        report["cases"].append(row)
+        del x, dy, xg, outs
+        torch.cuda.empty_cache()
+    return report
+
+
 def main(only_parallel=False, only_loader=False):
     import torch
 
@@ -3547,6 +3661,8 @@ def main(only_parallel=False, only_loader=False):
     for name in FORWARD_KERNELS:
         assert fwd_launches[name] > 0, \
             f"kernel {name} was not launched by the forward"
+    for name in BATCHNORM_KERNELS:
+        assert fwd_launches[name] == 0, (name, fwd_launches)
     check_outputs(torch, outs, points, B, N)
     fwd_ms = cuda_ms(torch, lambda: fn(points), warmup=2, reps=10)
     iters = 5
@@ -3706,6 +3822,9 @@ def main(only_parallel=False, only_loader=False):
     log("phase 18: the loader's radius count (kernel I)")
     radius_report = radius_phase(torch, T, kernels, device)
 
+    log("phase 19: train-mode BatchNorm + relu (kernel J)")
+    batchnorm_report = batchnorm_phase(torch, T, kernels, device)
+
     # `launches`: the count from this slice's path (phase 17 (b): one rank
     # of the data-parallel detection step) for A-G, from the bf16 forward
     # and step for the bf16 cases, from the legacy forward for H
@@ -3750,6 +3869,7 @@ def main(only_parallel=False, only_loader=False):
     log(json.dumps({"bf16": {"seconds": bf16_seconds, **bf16_report}}))
     log(json.dumps({"parallel": parallel_report}))
     log(json.dumps({"radius": radius_report}))
+    log(json.dumps({"batchnorm": batchnorm_report}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": kernel_rows}))

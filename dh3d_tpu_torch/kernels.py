@@ -35,7 +35,7 @@ PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "kernels")
 SOURCES = ("knn.cu", "knn_topk.cu", "knn_window.cu", "fps.cu",
-           "neighborhood.cu", "radius.cu")
+           "neighborhood.cu", "radius.cu", "batchnorm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -145,6 +145,7 @@ class Kernel:
         self.argtypes = list(argtypes) + [_P]  # + the stream
         self.defaults = tuple(defaults)  # of the last arguments (a plan)
         self.launches = 0
+        self._fn = None  # the entry point, once the library is loaded
 
     def launch(self, device: torch.device, *args) -> None:
         """Launch on `device`'s current stream; arguments left off the end
@@ -153,11 +154,16 @@ class Kernel:
         missing = len(self.argtypes) - 1 - len(args)
         if 0 < missing <= len(self.defaults):
             args += self.defaults[len(self.defaults) - missing:]
-        lib = library()
-        fn = getattr(lib, self.symbol)
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = fn(*args, stream)
+        fn = self._fn
+        if fn is None:
+            fn = self._fn = getattr(library(), self.symbol)
+        index = torch.cuda.current_device() if device.index is None \
+            else device.index
+        if torch.cuda.current_device() == index:
+            err = fn(*args, _raw_stream(index))
+        else:  # a launch goes to the current device's streams
+            with torch.cuda.device(index):
+                err = fn(*args, _raw_stream(index))
         if err == CUDA_ERROR_INVALID_VALUE:
             sizes = [a for t, a in zip(self.argtypes, args) if t is _I]
             raise ValueError(
@@ -166,8 +172,16 @@ class Kernel:
         if err != 0:
             raise RuntimeError(
                 f"{self.name} kernel: CUDA error {err} "
-                f"({lib.dh3d_error_string(err).decode()}) at launch")
+                f"({library().dh3d_error_string(err).decode()}) at launch")
         self.launches += 1
+
+
+def _raw_stream(index: int) -> int:
+    """The current stream of CUDA device `index`, as a pointer."""
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if get is not None:  # without building a Stream object
+        return get(index)
+    return torch.cuda.current_stream(index).cuda_stream
 
 
 KNN = Kernel("knn", "dh3d_knn", [_P, _P, _P, _P, _I, _I, _I, _I])
@@ -204,10 +218,19 @@ NEIGHBOR_MAX_BWD = Kernel("neighbor_max_backward", "dh3d_neighbor_max_bwd",
 # I: the loader's radius count: M, the radius, then the plan (the key split)
 RADIUS_COUNT = Kernel("radius_count", "dh3d_radius_count",
                       [_P, _P, _I, _D, _I])
+# J: train-mode BatchNorm (+ ReLU), one entry point a pass: sizes, then
+# the plan (channels a thread, row slices)
+BN_STATS = Kernel("batch_norm_stats", "dh3d_bn_stats", [_P] * 3 + [_I] * 4)
+BN_FORWARD = Kernel("batch_norm_forward", "dh3d_bn_forward",
+                    [_P] * 8 + [_I, _I, _D, _D, _D] + [_I] * 4)
+BN_GRAD_SUMS = Kernel("batch_norm_grad_sums", "dh3d_bn_grad_sums",
+                      [_P] * 6 + [_I] * 5)
+BN_GRAD_DX = Kernel("batch_norm_grad_dx", "dh3d_bn_grad_dx",
+                    [_P] * 11 + [_I] * 5)
 KERNELS = (KNN, KNN_TOPK, KNN_WINDOW, FPS, WEIGHTED_SUM, FLEX_MOMENTS,
            FLEX_MOMENTS_BF16, NEIGHBOR_MAX, WEIGHTED_SUM_BWD,
            FLEX_MOMENTS_BWD, FLEX_MOMENTS_BWD_BF16, NEIGHBOR_MAX_BWD,
-           RADIUS_COUNT)
+           RADIUS_COUNT, BN_STATS, BN_FORWARD, BN_GRAD_SUMS, BN_GRAD_DX)
 
 
 def reset_counts() -> None:

@@ -32,7 +32,6 @@ import torch
 from torch import nn
 
 from dh3d_tpu_torch import ops
-from dh3d_tpu_torch.parallel.collectives import all_reduce
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,
@@ -74,14 +73,17 @@ def dense(din: int, features: int, bias: float = 0.0) -> nn.Linear:
 
 class BatchNorm(nn.Module):
     """Channel BatchNorm over the last axis (Flax nn.BatchNorm):
-    y = (x - mean) * (rsqrt(var + eps) * scale) + bias.
+    y = (x - mean) * (rsqrt(var + eps) * scale) + bias, then relu(y) when
+    built with `relu` (the BN -> relu of the layers below, fused).
 
     Eval mode (`self.training` False) uses the running statistics.  Train
     mode uses the batch's, over every axis but the channel, as Flax
     computes them: mean(x) and var = max(0, mean(x^2) - mean(x)^2), the
     gradient flowing through both; the running statistics then move as
     m * old + (1 - m) * new, with the biased var (Flax's momentum m is
-    the weight of the old value: 0.9 by default, 0.999 in NetVLAD).
+    the weight of the old value: 0.9 by default, 0.999 in NetVLAD).  On a
+    card train mode runs kernel J (`ops.batch_norm_train`); on the CPU
+    its plain version, this computation in PyTorch ops.
 
     `group` (None, a process group or a `parallel.Mesh`) is Flax's
     `axis_name`: sync BatchNorm.  In train mode the layer then all-reduces
@@ -92,9 +94,11 @@ class BatchNorm(nn.Module):
 
     epsilon = 1e-5
 
-    def __init__(self, features: int, momentum: float = 0.9):
+    def __init__(self, features: int, momentum: float = 0.9,
+                 relu: bool = False):
         super().__init__()
         self.momentum = momentum
+        self.relu = relu
         self.update_statistics = True  # off in a remat recompute
         self.group = None
         self.scale = nn.Parameter(torch.ones(features))
@@ -105,25 +109,12 @@ class BatchNorm(nn.Module):
     def forward(self, x):
         x = x.float()  # a bf16 input normalises in f32, as in Flax
         if self.training:
-            dims = tuple(range(x.dim() - 1))
-            if self.group is None:
-                mean, meansq = x.mean(dims), (x * x).mean(dims)
-            else:
-                c = x.shape[-1]
-                sums = all_reduce(torch.cat([
-                    x.sum(dims), (x * x).sum(dims),
-                    x.new_full((1,), x.numel() // c)]), self.group)
-                mean, meansq = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
-            var = torch.clamp_min(meansq - mean * mean, 0.0)
-            if self.update_statistics:
-                with torch.no_grad():
-                    m = self.momentum
-                    self.mean.copy_(m * self.mean + (1 - m) * mean)
-                    self.var.copy_(m * self.var + (1 - m) * var)
-        else:
-            mean, var = self.mean, self.var
-        mul = torch.rsqrt(var + self.epsilon) * self.scale
-        return (x - mean) * mul + self.bias
+            return ops.batch_norm_train(
+                x, self.scale, self.bias, self.mean, self.var, self.momentum,
+                self.epsilon, self.relu, self.update_statistics, self.group)
+        mul = torch.rsqrt(self.var + self.epsilon) * self.scale
+        y = (x - self.mean) * mul + self.bias
+        return torch.relu(y) if self.relu else y
 
 
 def sync_batchnorm(module: nn.Module, group) -> None:
@@ -174,15 +165,16 @@ class FlexConv(nn.Module):
 
 class FlexConvBN(nn.Module):
     """flexconv_withBatchnorm (`core/tf_utils.py:48-64`):
-    flexconv -> BN -> relu; `dtype` is the flex conv's."""
+    flexconv -> BN -> relu (the relu fused into the BN); `dtype` is the
+    flex conv's."""
 
     def __init__(self, din: int, features: int, dtype=None):
         super().__init__()
         self.flexconv = FlexConv(din, features, dtype)
-        self.norm = BatchNorm(features)
+        self.norm = BatchNorm(features, relu=True)
 
     def forward(self, feat, pos, nbh, inverse=None):
-        return torch.relu(self.norm(self.flexconv(feat, pos, nbh, inverse)))
+        return self.norm(self.flexconv(feat, pos, nbh, inverse))
 
 
 class ConvPointset(nn.Module):
@@ -199,20 +191,22 @@ class ConvPointset(nn.Module):
 
 
 class ConvPointsetBN(nn.Module):
-    """convolution_pointset_withBatchnorm (`core/tf_utils.py:67-83`)."""
+    """convolution_pointset_withBatchnorm (`core/tf_utils.py:67-83`):
+    pointset conv -> BN -> relu (the relu fused into the BN)."""
 
     def __init__(self, din: int, features: int):
         super().__init__()
         self.conv = ConvPointset(din, features)
-        self.norm = BatchNorm(features)
+        self.norm = BatchNorm(features, relu=True)
 
     def forward(self, feat, nbh, inverse=None):
-        return torch.relu(self.norm(self.conv(feat, nbh, inverse)))
+        return self.norm(self.conv(feat, nbh, inverse))
 
 
 class Conv1x1(nn.Module):
     """feature_conv1d_1 (`core/tf_utils.py:99-109`): pointwise Dense, then
-    BN and the activation (BNReLU by default).  `dtype` (None or bf16): the
+    BN and the activation (BNReLU by default; a relu after the BN is fused
+    into it).  `dtype` (None or bf16): the
     Dense's compute dtype, Flax's `Dense(dtype=...)`: input, kernel and
     bias cast to it, the product rounded to it, then the bias added in it
     (`dh3d_tpu/nn/layers.py:172-197`)."""
@@ -221,7 +215,7 @@ class Conv1x1(nn.Module):
                  act: Callable = torch.relu, dtype=None):
         super().__init__()
         self.dense = dense(din, features)
-        self.norm = BatchNorm(features) if bn else None
+        self.norm = BatchNorm(features, relu=act is torch.relu) if bn else None
         self.act = act
         self.dtype = dtype
 
@@ -232,9 +226,10 @@ class Conv1x1(nn.Module):
             dt = self.dtype
             x = (nn.functional.linear(x.to(dt), self.dense.weight.to(dt))
                  + self.dense.bias.to(dt))
-        if self.norm is not None:
-            x = self.norm(x)
-        return self.act(x)
+        if self.norm is None:
+            return self.act(x)
+        x = self.norm(x)
+        return x if self.norm.relu else self.act(x)
 
 
 class FlexAvg(nn.Module):

@@ -13,7 +13,10 @@ window; its band starts `win_start`, its launch plan `window_plan`),
 `flex_moments_backward` (and `flex_deconv` on it), `neighbor_max` (and
 `flex_pool`) with its backward `neighbor_max_backward` (launch plan of
 the three forwards: `row_plan`), `radius_count` (the loader's outlier
-removal, kernel I; launch plan `radius_plan`); `NeighborInverse` shares
+removal, kernel I; launch plan `radius_plan`), `batch_norm_train`
+(train-mode BatchNorm with an optional fused relu, kernel J, forward and
+backward; plain `batch_norm_plain`, closed-form backward
+`batch_norm_backward_plain`, launch plan `bn_plan`); `NeighborInverse` shares
 the CSR inverse those backwards read among the ops over one
 neighbourhood.  Plain
 PyTorch, as in the JAX package: `group_point`, the ball queries,
@@ -72,6 +75,12 @@ from dh3d_tpu_torch.ops.neighborhood import (
     weighted_sum_backward_plain,
     weighted_sum_plain,
 )
+from dh3d_tpu_torch.ops.batchnorm import (
+    batch_norm_backward_plain,
+    batch_norm_plain,
+    batch_norm_train,
+    bn_plan,
+)
 from dh3d_tpu_torch.ops.radius import (
     radius_count,
     radius_count_plain,
@@ -87,7 +96,8 @@ from dh3d_tpu_torch.ops.sampling import (
 )
 
 __all__ = [
-    "NeighborInverse", "conv_pointset", "farthest_point_sample", "flex_avg",
+    "NeighborInverse", "batch_norm_backward_plain", "batch_norm_plain",
+    "batch_norm_train", "bn_plan", "conv_pointset", "farthest_point_sample", "flex_avg",
     "flex_conv", "flex_deconv",
     "flex_moments", "flex_moments_backward",
     "flex_moments_backward_plain", "flex_moments_plain", "flex_pool",

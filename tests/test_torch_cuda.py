@@ -33,7 +33,12 @@ plain version exactly on the CPU tests' cases (`test_torch_radius.py`)
 and on a raw scan at the extraction's size, at every split, and there
 also `cKDTree`; the eval loader on the card launches it once a cloud and
 yields the clouds of the `cKDTree` path, and it does not wait for work
-queued on the default stream.
+queued on the default stream.  Kernel J (train-mode BatchNorm with a
+fused relu) is held to the layer's plain code at the train steps' shapes
+(both against the plain code in float64), gives the same bits twice,
+recomputes the forward's relu mask bit for bit in the backward, leaves
+the running statistics alone when told to, and launches once a pass for
+each train-mode BatchNorm of a step, never in an eval forward.
 """
 
 import importlib
@@ -1363,3 +1368,199 @@ def test_loader_does_not_wait_for_the_default_stream(device, tmp_path):
     assert len(items) == 2 and kernels.RADIUS_COUNT.launches == launches + 2
     assert still_busy, f"the loader waited for the default stream " \
                        f"({seconds:.2f} s)"
+
+
+# ------------- kernel J: train-mode BatchNorm with a fused relu -------------
+
+# the main path's shapes: stage 2's nine widths over 163840 points and two
+# over 20480, stage 3's head over 196608 and its 24 descriptors; C = 3
+# takes one channel a thread
+BN_SHAPES = [(163840, 32), (163840, 64), (163840, 128), (163840, 256),
+             (163840, 1024), (20480, 128), (196608, 1024), (196608, 64),
+             (24, 256), (1000, 3)]
+BN_KERNELS = ("batch_norm_stats", "batch_norm_forward",
+              "batch_norm_grad_sums", "batch_norm_grad_dx")
+BN_OUTPUTS = ("out", "dx", "dscale", "dbias", "running_mean", "running_var")
+
+
+def _bn_inputs(rows, C, seed, integer_dy=False):
+    """x [rows, C] at per-channel means in (-5, 5) and spreads in (0.1,
+    3.1); channel 0 the constant 0.75 (its var exactly 0, so the clamp's
+    edge; its bias 0.5), channel 1 below 0 after the normalisation
+    everywhere (bias -100: no relu passes); dy (integers 1..4 with
+    `integer_dy`), scale, bias, running statistics; float32 on the card.
+    Every other x whose normalised value y lies within 1e-3 of 0 is moved
+    away from it by 2e-3 / mul, so that rounding cannot flip the relu's
+    gradient between versions (which would move one element's dx by its
+    whole dy * mul)."""
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(rows, C, generator=g)
+         * (torch.rand(C, generator=g) * 3 + 0.1)
+         + (torch.rand(C, generator=g) * 10 - 5))
+    x[:, 0] = 0.75
+    dy = (torch.randint(1, 5, (rows, C), generator=g).float() if integer_dy
+          else torch.randn(rows, C, generator=g))
+    scale = torch.rand(C, generator=g) + 0.5
+    bias = torch.randn(C, generator=g)
+    bias[0], bias[1] = 0.5, -100.0
+    mean0 = torch.randn(C, generator=g)
+    var0 = torch.rand(C, generator=g) + 0.5
+    xd = x.double()
+    mean = xd.mean(0)
+    mul = torch.rsqrt(torch.clamp_min((xd * xd).mean(0) - mean * mean, 0.0)
+                      + 1e-5) * scale.double()
+    y = (xd - mean) * mul + bias.double()
+    push = torch.where(y >= 0, 2e-3, -2e-3) / mul
+    push[:, 0] = 0.0
+    x = torch.where(y.abs() < 1e-3, xd + push, xd).float()
+    return [t.cuda() for t in (x, dy, scale, bias, mean0, var0)]
+
+
+def _bn_run(fn, x, dy, scale, bias, mean0, var0, relu, update=True):
+    """fn's output, dx, dscale, dbias and running statistics, on copies."""
+    xi = x.clone().requires_grad_()
+    s, b = scale.clone().requires_grad_(), bias.clone().requires_grad_()
+    m, v = mean0.clone(), var0.clone()
+    y = fn(xi, s, b, m, v, 0.9, 1e-5, relu, update)
+    y.backward(dy)
+    return [y.detach(), xi.grad, s.grad, b.grad, m, v]
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("rows,C", BN_SHAPES)
+def test_batchnorm_equals_plain(device, rows, C, relu):
+    """Kernel J (`ops.batch_norm_train`: each of its four entry points once)
+    against the layer's plain code in f32 (`ops.batch_norm_plain`), both
+    held to the plain code in float64: the output, the running mean and
+    var and the gradients of x, scale and bias, J's largest error at most
+    twice the plain f32 version's plus 1e-6 of the quantity's largest
+    value (J sums in f64, PyTorch's reductions in f32).  A second run of J
+    gives the same bits.  The constant channel's output is its bias
+    exactly; with the relu the channel below 0 outputs 0 and passes no
+    gradient."""
+    inputs = _bn_inputs(rows, C, rows + C)
+    before = kernels.counts()
+    got = _bn_run(T.batch_norm_train, *inputs, relu)
+    torch.cuda.synchronize()
+    after = kernels.counts()
+    assert all(after[k] == before[k] + 1 for k in BN_KERNELS), after
+    for a, b in zip(got, _bn_run(T.batch_norm_train, *inputs, relu)):
+        assert torch.equal(a, b)
+    plain = _bn_run(T.batch_norm_plain, *inputs, relu)
+    ref = _bn_run(T.batch_norm_plain, *(t.double() for t in inputs), relu)
+    for name, a, p, r in zip(BN_OUTPUTS, got, plain, ref):
+        top = r.abs().max().item()
+        err = (a.double() - r).abs().max().item()
+        err_plain = (p.double() - r).abs().max().item()
+        assert err <= 2 * err_plain + 1e-6 * top, (name, err, err_plain, top)
+    out, dx, dscale, dbias = got[:4]
+    bias = inputs[3]
+    assert torch.all(out[:, 0] == (torch.relu(bias[0]) if relu else bias[0]))
+    if relu:
+        assert torch.all(out[:, 1] == 0) and torch.all(dx[:, 1] == 0)
+        assert dscale[1] == 0 and dbias[1] == 0
+
+
+@pytest.mark.parametrize("rows,C", [(163840, 64), (196608, 1024), (1000, 3)])
+@pytest.mark.parametrize("dy_aligned", [True, False])
+def test_batchnorm_relu_masks_agree(device, rows, C, dy_aligned):
+    """The backward's relu mask, recomputed from x, is the forward's bit for
+    bit, also when a misaligned dy takes the backward to one channel a
+    thread: with integer dy, dbias is exactly the sum of dy where the
+    forward's output is above 0, and dx is the closed form on the
+    forward's mask (float64 statistics) within a quarter of the smallest
+    |mul|, below any one element's dy * mul."""
+    x, dy, scale, bias, mean0, var0 = _bn_inputs(rows, C, 7 * C,
+                                                  integer_dy=True)
+    if not dy_aligned:
+        dy = torch.empty(rows * C + 1, device=device)[1:].view(rows, C
+                                                              ).copy_(dy)
+    out, dx, _, dbias, _, _ = _bn_run(T.batch_norm_train, x, dy, scale,
+                                      bias, mean0, var0, True)
+    g = (dy * (out > 0)).double()
+    assert torch.equal(dbias.double(), g.sum(0))
+    xd = x.double()
+    mean, meansq = xd.mean(0), (xd * xd).mean(0)
+    raw = meansq - mean * mean
+    rstd = torch.rsqrt(torch.clamp_min(raw, 0.0) + 1e-5)
+    mul = rstd * scale.double()
+    xc = xd - mean
+    sg, sgc = g.sum(0), (g * xc).sum(0)
+    dvar = torch.where(raw >= 0, -0.5 * sgc * scale.double() * rstd ** 3,
+                       0.0)
+    want = g * mul - mul * sg / rows + 2 * dvar / rows * xc
+    assert (dx.double() - want).abs().max() < 0.25 * mul.abs().min()
+
+
+def test_batchnorm_update_false_leaves_running_statistics(device):
+    """`update=False` (a remat recompute): the running statistics keep
+    their bits, the output and gradients are those of an updating run."""
+    inputs = _bn_inputs(163840, 64, 5)
+    kept = _bn_run(T.batch_norm_train, *inputs, True, update=False)
+    moved = _bn_run(T.batch_norm_train, *inputs, True)
+    assert torch.equal(kept[4], inputs[4]) and torch.equal(kept[5], inputs[5])
+    assert not torch.equal(moved[4], inputs[4])
+    for a, b in zip(kept[:4], moved[:4]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rows,C", [(163840, 64), (196608, 1024), (20480, 128),
+                                    (1000, 3)])
+@pytest.mark.parametrize("row_blocks", [1, 7])
+def test_batchnorm_does_not_depend_on_its_plan(device, monkeypatch, rows, C,
+                                               row_blocks):
+    """J's sums are exact to f64 rounding, so the row slices of its plan do
+    not change a bit of what it returns (as a rank of sync BatchNorm, with
+    its share of the rows, or a card with another SM count, rounds as the
+    one-process step does): the output, the running statistics and the
+    gradients with `row_blocks` slices equal those with the plan's."""
+    from dh3d_tpu_torch.ops import batchnorm
+
+    inputs = _bn_inputs(rows, C, 3 * C + row_blocks)
+    want = _bn_run(T.batch_norm_train, *inputs, True)
+    plan = batchnorm._device_plan
+    monkeypatch.setattr(batchnorm, "_device_plan",
+                        lambda *a: (plan(*a)[0], row_blocks))
+    got = _bn_run(T.batch_norm_train, *inputs, True)
+    for name, a, b in zip(BN_OUTPUTS, got, want):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("stage", [2, 3])
+def test_train_step_launches_j_once_a_pass_for_each_batchnorm(device, stage):
+    """A stage-2 step (`detection_config`, 4 clouds of 4096 points) launches
+    each of J's four entry points 11 times, once for each BatchNorm in
+    train mode; a stage-3 step (`models/demo_stage3.config.json`, 12
+    clouds of 4096 points; the backbone frozen in eval mode) 5 times, the
+    head's; a forward in eval mode not at all."""
+    from dh3d_tpu_torch import config as cfglib
+    from dh3d_tpu_torch.nn.layers import BatchNorm
+    from dh3d_tpu_torch.train import (add_draws, init_state, make_train_step,
+                                      synthetic_batches, to_device)
+
+    if stage == 2:
+        cfg = cfglib.get_config("detection_config")
+        cfg.num_points, cfg.batch_size, cfg.sampled_kpnum = 4096, 4, 128
+    else:
+        cfg = cfglib.load_config("models/demo_stage3.config.json")
+        cfg.num_points, cfg.batch_size = 4096, 1
+    state = init_state(cfg, 0, "cuda")
+    batch = add_draws(to_device(next(synthetic_batches(cfg, 0)), "cuda"), cfg)
+    step = make_train_step(cfg)
+    kernels.reset_counts()
+    step(state, dict(batch))
+    torch.cuda.synchronize()
+    counts = kernels.counts()
+    norms = [m for m in state.model.modules()
+             if isinstance(m, BatchNorm) and m.training]
+    assert len(norms) == {2: 11, 3: 5}[stage]
+    assert all(counts[k] == len(norms) for k in BN_KERNELS), counts
+    state.model.eval()
+    kernels.reset_counts()
+    kp = cfg.sampled_kpnum if (cfg.sampled_kpnum or 0) > 0 else None
+    with torch.no_grad():
+        state.model(torch.randn(2, 4096, 3, device=device) * 20,
+                    sample_inds=None if kp is None else torch.arange(
+                        kp, device=device).repeat(2, 1))
+    torch.cuda.synchronize()
+    assert all(kernels.counts()[k] == 0 for k in BN_KERNELS)

@@ -381,6 +381,8 @@ def test_cpu_path_never_builds_or_counts(cloud, knn8):
     fb = _t(cloud).to(torch.bfloat16).requires_grad_()
     T.flex_moments(fb, _t(cloud), _t(knn8)).sum().backward()  # bf16 cases
     T.radius_count(_t(cloud[0]), 1.0)  # kernel I's plain version
+    T.batch_norm_train(f, torch.ones(3), torch.zeros(3), torch.zeros(3),
+                       torch.ones(3), 0.9, 1e-5, relu=True).sum().backward()
     assert kernels.counts() == {"knn": 0, "knn_topk": 0, "knn_window": 0,
                                 "fps": 0,
                                 "weighted_sum": 0, "flex_moments": 0,
@@ -390,7 +392,11 @@ def test_cpu_path_never_builds_or_counts(cloud, knn8):
                                 "flex_moments_backward": 0,
                                 "flex_moments_backward_bf16": 0,
                                 "neighbor_max_backward": 0,
-                                "radius_count": 0}
+                                "radius_count": 0,
+                                "batch_norm_stats": 0,
+                                "batch_norm_forward": 0,
+                                "batch_norm_grad_sums": 0,
+                                "batch_norm_grad_dx": 0}
     assert kernels._library is None
     path = kernels.library_path()
     assert path.startswith(kernels.BUILD_DIR) and path.endswith(".so")
