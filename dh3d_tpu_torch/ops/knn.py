@@ -30,7 +30,7 @@ import torch
 from dh3d_tpu_torch import kernels
 
 # Kernel A's largest k; kernel G takes every k above it.  In one call on an
-# H100 (`chip_smoke.py --ab-root`; PERF.md section 6) G took 47-57% less
+# H100 (PERF.md section 6, rows 1-4) G took 47-57% less
 # time than A at the path's k >= 8 shapes (the self kNN k=8 at [20,8192]
 # and [1,16384], padded or not, the detection loss's k=16 [10,512] x
 # [10,8192]) and 3% less at k=8 [20,1024]; at the 3-NN [20,8192] ->
@@ -50,8 +50,8 @@ def topk_plan(k: int) -> int:
     """Kernel G's plan at k: merge 1, a chunk's candidates merged into the
     list at once, above k = 32 (a list of 64 or 128); merge 0, inserted one
     at a time, at or below it (a list of 32).  A sweep of both at the
-    path's shapes on an H100 (`chip_smoke.py --sweep`; PERF.md) chose it:
-    merging won by 11-46% above k = 32 and lost by 5-29% below."""
+    path's shapes on an H100 (`chip_smoke.py --sweep`; PERF.md §6) chose
+    it: merging won by 11-46% above k = 32 and lost by 5-29% below."""
     return 1 if k > 32 else 0
 
 
@@ -217,7 +217,7 @@ def window_plan(k: int, window: int, queries: int) -> int:
     queries, k neighbours and a band of `window` keys.  4 lanes, and more
     while the queries times the lanes stay under 2^16 threads and each lane
     keeps 16 keys or more.  A sweep of every plan at the path's shapes on
-    an H100 (`chip_smoke.py --sweep`; PERF.md) chose it: 4 lanes were the
+    an H100 (`chip_smoke.py --sweep`; PERF.md §6) chose it: 4 lanes were the
     fastest at [20,8192] and [1,16384] (k=8, W=512) and at the 3-NN W=256
     [1,32768]->[1,4096], 16 at [1,4096]; k did not change the order at the
     path's k of 3 and 8."""

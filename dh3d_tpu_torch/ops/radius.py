@@ -47,7 +47,7 @@ def radius_plan(m: int, sm_count: int) -> int:
     that about RADIUS_BLOCKS_PER_SM blocks an SM run (two waves of 8), each
     with at least one tile of keys.  On an H100 at the raw scan's M ~
     27,700, 6 to 24 splits took 0.48-0.52 ms and 1 to 5 0.59-0.79
-    (`chip_smoke.py` phase 18; PERF.md §6)."""
+    (PERF.md §6)."""
     query_blocks = -(-m // RADIUS_THREADS)
     want = -(-RADIUS_BLOCKS_PER_SM * sm_count // query_blocks)
     return max(1, min(want, -(-m // RADIUS_TILE)))

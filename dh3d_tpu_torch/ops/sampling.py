@@ -53,7 +53,7 @@ def fps_plan(B: int, N: int, sm_count: int) -> tuple:
     GPC, sm_count // FPS_GPC_SMS GPCs), else 1; then doubled (to at most 8)
     while the cloud does not fit the registers of C blocks.  T: 128 threads
     in a cluster, 256 for one block.  The sweep of every (C, T) at the
-    path's shapes on an H100 (`chip_smoke.py --sweep`; PERF.md) chose
+    path's shapes on an H100 (`chip_smoke.py --sweep`; PERF.md §6) chose
     these."""
     gpcs = max(1, sm_count // FPS_GPC_SMS)
     c = next((c for c in (8, 4, 2) if B <= gpcs * (FPS_GPC_SMS // c)), 1)

@@ -22,14 +22,15 @@ versions), and every plan of a weighted sum gives the same bits, which
 are also `flex_moments`' on the positions.  The backwards also run at the
 train step's own shapes, where they must give the same bits with the CSR
 inverse shared and built in the call, and on a second run.  The
-train step on the card is held to the CPU's as `chip_smoke.py` phase 7
-holds it (see there).  Kernel H (the Morton band's kNN, `knn_window`)
-must equal its plain version exactly, self and cross, at each list length
-it compiles and at every launch plan (lanes a query, `plan=`), on random,
-integer-grid and duplicated clouds, at the band's edges and with NaN
-rows; its entry point refuses sizes itself; the legacy forward launches it once and
-matches the CPU's.  Kernel I (the loader's radius count) must equal its
-plain version exactly on the CPU tests' cases (`test_torch_radius.py`)
+train step on the card is held to the CPU's at the limits of
+`tests/test_torch_cuda_paths.py` (TRAIN_*; see there).  Kernel H (the
+Morton band's kNN, `knn_window`) must equal its plain version exactly,
+self and cross, at each list length it compiles and at every launch plan
+(lanes a query, `plan=`), on random, integer-grid and duplicated clouds,
+at the band's edges and with NaN rows; its entry point refuses sizes
+itself; the legacy forward launches it once and matches the CPU's.
+Kernel I (the loader's radius count) must equal its plain version
+exactly on the CPU tests' cases (`test_torch_radius.py`)
 and on a raw scan at the extraction's size, at every split, and there
 also `cKDTree`; the eval loader on the card launches it once a cloud and
 yields the clouds of the `cKDTree` path, and it does not wait for work
@@ -672,7 +673,9 @@ def test_train_step_on_card_matches_cpu(device):
     and batch on the card and on the CPU: the losses within 1e-4 relative,
     every gradient within 1e-3 of its tensor's largest magnitude (the
     gradients of biases that feed a BatchNorm are 0 exactly and compare
-    against the model's largest gradient), as chip_smoke.py phase 7."""
+    against the model's largest gradient): `test_torch_cuda_paths.py`'s
+    TRAIN_LOSS_REL and TRAIN_GRAD_REL, which hold the step at full width
+    there."""
     from dh3d_tpu_torch import config as cfglib
     from dh3d_tpu_torch.nn.layers import bn_fed_biases
     from dh3d_tpu_torch.train import (forward_loss, init_state,
@@ -1006,7 +1009,8 @@ def test_knn_window_entry_point_refuses_what_it_does_not_take(device):
 def test_legacy_forward_on_card_launches_h_and_matches_cpu(device):
     """The main-path model with morton_exact=False at [2, 2048]: H once
     (the full-resolution kNN), neighbour ids equal to the CPU's, the
-    descriptors within `chip_smoke.py` phase 5's 1e-4."""
+    descriptors within `test_torch_cuda_paths.py`'s CARD_VS_CPU_ATOL,
+    1e-4."""
     from dh3d_tpu_torch.entry import entry_config, entry_points, entry_weights
     from dh3d_tpu_torch.eval import make_forward
     from dh3d_tpu_torch.nn import DH3D, load_flax
@@ -1131,7 +1135,8 @@ def test_flex_moments_bf16_misaligned_and_refused(device):
 def test_bf16_forward_on_card_launches_the_bf16_cases(device):
     """The main-path model in bf16 at [2, 2048]: the bf16 case of C five
     times (every flex conv) and the f32 case never; card against CPU
-    within the bf16 limits of `chip_smoke.py` phase 16 (c)."""
+    within the bf16 limits of `test_torch_cuda_paths.py`'s
+    BF16_CARD_VS_CPU."""
     from dh3d_tpu_torch.entry import entry_config, entry_points, entry_weights
     from dh3d_tpu_torch.eval import make_forward
     from dh3d_tpu_torch.nn import DH3D, load_flax

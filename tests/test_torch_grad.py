@@ -4,7 +4,7 @@ package's VJPs, on the CPU.
 On the CPU the port's `WeightedSum`, `FlexMoments` and `NeighborMax`
 Functions run their plain forward and plain backward (`weighted_sum_backward_plain`,
 `neighbor_max_backward_plain`): the functions kernels E and F are held to
-on the card (`tests/test_torch_cuda.py`, `chip_smoke.py`).  Here the same
+on the card (`tests/test_torch_cuda.py`; PERF.md §6).  Here the same
 numpy inputs and cotangents go through
   - `jax.grad` of the JAX CPU gather forms (`dh3d_tpu.ops`), and
   - the planned Pallas paths the TPU trains with, in interpret mode, at

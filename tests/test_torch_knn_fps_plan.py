@@ -1,8 +1,8 @@
 """Kernel B's (FPS) launch plan and the rule that decides its output, on
 the CPU.
 
-The CUDA kernel runs only on the card (`tests/test_torch_cuda.py`,
-`chip_smoke.py`, which hold it against its plain version); here:
+The CUDA kernel runs only on the card (`tests/test_torch_cuda.py` holds
+it against its plain version; PERF.md §6 times it); here:
   - `fps_plan`, a pure function of the shapes and the SM count, at the
     path's shapes and in its range;
   - kernel B's candidate order: the packed key (distance bits << 32 |

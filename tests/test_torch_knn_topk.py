@@ -1,8 +1,8 @@
 """Kernel G's pruned search (`csrc/knn_topk.cu`), its launch plan and the
 rule that routes `knn` between kernels A and G, on the CPU.
 
-The CUDA kernel runs only on the card (`tests/test_torch_cuda.py`,
-`chip_smoke.py` hold it to the plain version there); here:
+The CUDA kernel runs only on the card (`tests/test_torch_cuda.py` holds
+it to the plain version there; PERF.md §6 times it); here:
   - a model of its search, kept in this file: plain PyTorch that follows
     the kernel's rule (keys sorted by a 15-bit Z-order cell of the keys'
     occupied-bin frame, any order within a cell; a box and a lowest index

@@ -2,7 +2,7 @@
 
 On the CPU the port's wrappers take their plain PyTorch versions, which are
 the functions the CUDA kernels are held to on the card
-(`tests/test_torch_cuda.py`, `chip_smoke.py`).  Here the same numpy inputs
+(`tests/test_torch_cuda.py`; PERF.md §6).  Here the same numpy inputs
 go through:
   - the JAX CPU op of `dh3d_tpu.ops` (its plain gather/XLA form), and
   - the Pallas kernel the port replaces, in interpret mode, with window = N

@@ -2,8 +2,9 @@
 CPU.
 
 The CUDA kernel runs only on the card (`tests/test_torch_cuda.py -k
-window` and `chip_smoke.py` phase 14 (a) hold it to the plain version
-there); here a model of its search, kept in this file: plain PyTorch that
+window` and `tests/test_torch_cuda_paths.py -k window` hold it to the
+plain version and its band starts to the formula there; PERF.md §6 times
+it); here a model of its search, kept in this file: plain PyTorch that
 follows the kernel's rule:
   - a group of L lanes a query; lane l visits the band rows l, l + L, ...
     of each staged pass of 1024 keys (the pass that holds the tile's
