@@ -242,6 +242,13 @@ def counts() -> dict:
     return {k.name: k.launches for k in KERNELS}
 
 
+def add_counts(launches: dict) -> None:
+    """Add {kernel name: n} to the kernels' counts (n may be negative): a
+    CUDA graph's replay adds the launches its capture recorded."""
+    for k in KERNELS:
+        k.launches += launches.get(k.name, 0)
+
+
 def fps_max_points(device: torch.device, cluster: int = 8,
                    threads: int = 128) -> int:
     """The largest cloud the FPS kernel samples on `device` with `cluster`

@@ -59,6 +59,9 @@ Functions; CUDA tensors launch the kernels.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
 from dh3d_tpu_torch import kernels, trace
@@ -123,6 +126,13 @@ class NeighborInverse:
     def __init__(self, nbh: torch.Tensor, m: int):
         self.nbh, self.m = nbh, m
         self._csr = None
+        made = getattr(_local, "made", None)
+        if made is not None:
+            made.append(self)
+
+    @property
+    def built(self) -> bool:
+        return self._csr is not None
 
     def get(self):
         """(rowptr, entries) of `inverse_neighbors(nbh, m)`, built once
@@ -131,6 +141,22 @@ class NeighborInverse:
             with trace.span("csr_inverse", self.nbh):
                 self._csr = inverse_neighbors(self.nbh, self.m)
         return self._csr
+
+
+_local = threading.local()  # .made: the list `collect_inverses` fills
+
+
+@contextlib.contextmanager
+def collect_inverses():
+    """Yields a list of the `NeighborInverse` holders this thread makes
+    while entered, in the order it makes them (a train step's CUDA graphs
+    build the ones its eager backward builds, in a stretch of their
+    own)."""
+    prev, _local.made = getattr(_local, "made", None), []
+    try:
+        yield _local.made
+    finally:
+        _local.made = prev
 
 
 def _check_inverse(inverse, nbh: torch.Tensor, M: int, name: str) -> None:

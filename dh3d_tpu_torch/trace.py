@@ -21,6 +21,12 @@ kernels' launch counts (`kernels.counts()`, as "launches.<kernel>").
 The store is shared by every thread of the process and holds at most
 `MAX_RECORDS` spans, dropping the oldest: a long run drains it
 (`records(clear=True)`) as it goes.
+
+While a thread captures device work into CUDA graphs (`cutting(cut)`),
+its spans record nothing (a timing event recorded inside a capture could
+not be timed): each calls `cut(name, device)` where it opens and
+`cut(None, None)` where it closes, so the capture can end a graph there
+and its replay open the same span around the same work.
 """
 
 from __future__ import annotations
@@ -120,13 +126,44 @@ class _Span:
                 "device_ms": self.device_ms}
 
 
+class _Cut:
+    __slots__ = ("cut", "name", "device")
+
+    def __init__(self, cut, name: str, device):
+        self.cut, self.name = cut, name
+        self.device = getattr(device, "device", device)
+
+    def __enter__(self):
+        self.cut(self.name, self.device)
+        return self
+
+    def __exit__(self, *exc):
+        self.cut(None, None)
+        return False
+
+
 def span(name: str, device=None):
     """A context that records the span `name` while recording is on.
     `device`: a tensor or device the span's work runs on; a CUDA one adds
-    the span's device time."""
+    the span's device time.  Inside `cutting` it records nothing."""
+    cut = getattr(_local, "cut", None)
+    if cut is not None:
+        return _Cut(cut, name, device)
     if not (_enabled or _profiling()):
         return _NULL
     return _Span(name, device)
+
+
+@contextlib.contextmanager
+def cutting(cut):
+    """While entered, the spans this thread opens record nothing and call
+    `cut(name, device)` as they open and `cut(None, None)` as they close
+    (`device` a device or None); other threads' spans are unaffected."""
+    prev, _local.cut = getattr(_local, "cut", None), cut
+    try:
+        yield
+    finally:
+        _local.cut = prev
 
 
 def count(name: str, n: int = 1) -> None:

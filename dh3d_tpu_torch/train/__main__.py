@@ -52,8 +52,10 @@ returns a summary (rank 0's under `--num_devices`): the tensors a warm
 start restored, the steps, the host-clock seconds of the loop, each
 step's wait in `next(batches)` (`wait_s`, span `step.wait`), its device
 time (`step_ms`, span `step`'s CUDA events; None off CUDA) and its
-kernel launches (the trace's counters), `spans` (`span_summary`), the
-last metrics, and the trace file (`profile`, None without one).
+kernel launches (the trace's counters), the step's own counters over the
+run (`counters`: eager steps, graph captures and replays), `spans`
+(`span_summary`), the last metrics, and the trace file (`profile`, None
+without one).
 `--device` defaults to cuda and raises when there is no CUDA device; the
 CPU (the kernels' plain versions) runs only when asked for.
 """
@@ -226,6 +228,7 @@ def run(args, device, mesh=None):
 
     t0 = time.time()
     start = state.step
+    counted = step_counters()
     profiling = first and args.profile and args.steps >= 16
     tracing = contextlib.ExitStack()  # stops the profiler, also on a raise
     metrics_log = (open(os.path.join(logdir, "metrics.jsonl"), "a") if first
@@ -273,6 +276,8 @@ def run(args, device, mesh=None):
     summary["step_ms"] = ([d for _, _, _, d in steps]
                           if device.type == "cuda" else None)
     summary["spans"] = span_summary(spans, steps)
+    summary["counters"] = {k: n - counted.get(k, 0)
+                           for k, n in step_counters().items()}
     summary["metrics"] = ({k: float(v) for k, v in metrics.items()}
                           if args.steps else {})
     return summary
@@ -282,6 +287,13 @@ def launches() -> dict:
     """{kernel: launches so far}, from the trace's counters."""
     return {k[len("launches."):]: n for k, n in trace.counters().items()
             if k.startswith("launches.")}
+
+
+def step_counters() -> dict:
+    """{counter: count so far} of the train step's own counters
+    (`train.eager_steps`, `train.graph_captures`, `train.graph_replays`)."""
+    return {k: n for k, n in trace.counters().items()
+            if k.startswith("train.")}
 
 
 def span_summary(spans: dict, steps: list) -> dict:

@@ -17,9 +17,11 @@ Semantics kept from the JAX trainer, which uses optax:
   - a trainable parameter the loss does not reach gets a zero gradient and
     an Adam step (optax updates every leaf);
   - the clip is optax's: g unchanged when |g| < max, else g / |g| * max.
-The step runs eagerly on whatever device the model lives on; on CUDA every
+The step runs on whatever device the model lives on; on CUDA every
 neighbourhood op and its backward is a hand-written kernel
-(`ops/neighborhood.py`).  Before the forward it augments a batch on the
+(`ops/neighborhood.py`), and a step whose shapes repeat is captured once
+and then replayed as CUDA graphs (`train/graphs.py`); other steps run
+eagerly.  Before the forward it augments a batch on the
 device (`augment_on_device`) and builds the self pairs of a {pc1, pc2}
 batch (`device_pairgen`: FPS on kernel B, the 1-NN on kernel A), from
 draws made by two generators the caller passes (`add_draws`,
@@ -60,9 +62,11 @@ from dh3d_tpu_torch.nn.convert import (load_flax, load_npz,
                                        warm_start_state_dict)
 from dh3d_tpu_torch.nn.layers import sync_batchnorm
 from dh3d_tpu_torch.nn.model import DH3D, compute_dtype, frozen_groups
+from dh3d_tpu_torch.ops.neighborhood import collect_inverses
 from dh3d_tpu_torch.parallel.collectives import (all_gather, reduce_,
                                                  size)
 from dh3d_tpu_torch.parallel.mesh import shard_batch
+from dh3d_tpu_torch.train import graphs
 
 
 def check_config(cfg) -> None:
@@ -107,12 +111,30 @@ def param_labels(cfg, model: nn.Module) -> dict:
 
 def make_optimizer(cfg, model: nn.Module) -> torch.optim.Adam:
     """Adam over the trainable parameters; the frozen ones stop requiring
-    grad.  The learning rate is set before every step from `lr_schedule`."""
+    grad.  The learning rate is set before every step from `lr_schedule`
+    (`set_lr`).  On CUDA parameters Adam is capturable, its learning rate
+    a device tensor: a CUDA graph of the step reads it there, and eager
+    steps do the same arithmetic."""
     labels = param_labels(cfg, model)
     for name, p in model.named_parameters():
         p.requires_grad_(labels[name] == "trainable")
-    return torch.optim.Adam([p for p in model.parameters() if p.requires_grad],
-                            lr=cfg.start_lr, betas=(0.9, 0.999), eps=1e-8)
+    params = [p for p in model.parameters() if p.requires_grad]
+    cuda = bool(params) and params[0].is_cuda
+    lr = (torch.tensor(float(cfg.start_lr), device=params[0].device) if cuda
+          else cfg.start_lr)
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            capturable=cuda)
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Every group's learning rate to `lr`: a device tensor filled in
+    place (stream-ordered, as a captured update reads it), else the
+    number."""
+    for group in optimizer.param_groups:
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 def kernel_l2(model: nn.Module) -> torch.Tensor:
@@ -129,12 +151,15 @@ def kernel_l2(model: nn.Module) -> torch.Tensor:
 
 @dataclasses.dataclass
 class TrainState:
-    """The model (parameters and BN statistics), its optimizer and the
-    number of updates taken."""
+    """The model (parameters and BN statistics), its optimizer, the
+    number of updates taken, and the step's CUDA graphs over these
+    tensors (`graphs.StepGraph`; None until a step makes them)."""
 
     model: DH3D
     optimizer: torch.optim.Adam
     step: int = 0
+    graph: graphs.StepGraph | None = dataclasses.field(
+        default=None, repr=False, compare=False)
 
 
 def require_device(device) -> torch.device:
@@ -267,7 +292,15 @@ def apply_gradients(state: TrainState, cfg, group=None) -> None:
     """Reduce the gradients over `group` (`reduce_gradients`), clip
     (optax form), set the learning rate for this update count, take one
     Adam step, count it."""
-    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    set_lr(state.optimizer, lr_schedule(cfg)(state.step))
+    _update(state.optimizer, cfg, group)
+    state.step += 1
+
+
+def _update(optimizer: torch.optim.Adam, cfg, group=None) -> None:
+    """`apply_gradients` at the learning rate the optimizer holds: device
+    work alone, which a CUDA graph can hold."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
     for p in params:
         if p.grad is None:  # unreached: a zero gradient, as optax sees it
             p.grad = torch.zeros_like(p)
@@ -280,11 +313,7 @@ def apply_gradients(state: TrainState, cfg, group=None) -> None:
         for p in params:
             p.grad.copy_(torch.where(norm < max_norm, p.grad,
                                      p.grad / norm * max_norm))
-    lr = lr_schedule(cfg)(state.step)
-    for group in state.optimizer.param_groups:
-        group["lr"] = lr
-    state.optimizer.step()
-    state.step += 1
+    optimizer.step()
 
 
 def shard_step_batch(batch: dict, cfg, group) -> dict:
@@ -308,6 +337,27 @@ def shard_step_batch(batch: dict, cfg, group) -> dict:
                        pairs=count if cfg.training_local else None)
 
 
+def _learn(state: TrainState, cfg, batch: dict, group, update,
+           built=()) -> tuple:
+    """The forward and the losses of a prepared batch, its backward and
+    `update()`, under the step's spans.  The backward first builds the
+    CSR inverses of the holders at the positions `built` among those the
+    forward makes (`collect_inverses`): a captured step builds there the
+    ones an eager backward builds as it goes.  Returns (metrics, the
+    holders made)."""
+    where = batch["points"]
+    with collect_inverses() as made:
+        total, metrics, _ = forward_loss(state.model, cfg, batch, group)
+    with trace.span("step.backward", where):
+        for i in built:
+            made[i].get()
+        state.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+    with trace.span("step.optimizer", where):
+        update()
+    return metrics, made
+
+
 def make_train_step(cfg, group=None):
     """train_step(state, batch, pairgen=None, augment=None) -> metrics: the
     batch's preparation on the device (`add_draws` from the two generators,
@@ -317,7 +367,15 @@ def make_train_step(cfg, group=None):
     and in it `step.prepare`, `step.forward` (the model's spans inside:
     `model.forward`, `model.morton`, `model.backbone`, `model.global`;
     `DH3D.forward`), `step.loss`, `step.backward` (`csr_inverse` where it
-    builds a CSR inverse, on autograd's thread) and `step.optimizer`.
+    builds a CSR inverse: on autograd's thread, or before the replayed
+    backward) and `step.optimizer`.
+
+    The draws are made eagerly.  Then, where `graphs.eager_reason` finds
+    nothing against it, the step replays its CUDA graphs on `state`
+    (`state.graph`): one signature of batch a step function, the state's
+    first such step run eagerly, its second captured (`graphs`).
+    Counters (`trace.count`): `train.eager_steps`, `train.graph_captures`
+    and `train.graph_replays`.
 
     With `group` (a `parallel.Mesh` or a process group) the step is data
     parallel (module docstring): every rank passes the whole batch and
@@ -325,25 +383,75 @@ def make_train_step(cfg, group=None):
     state come out the same on every rank."""
     check_config(cfg)
     cfg = dotdict(dict(cfg))
+    first = None  # the signature of the batches this step function graphs
+
+    def capture(graph: graphs.StepGraph, state: TrainState, batch: dict):
+        state.model.train()
+        sync_batchnorm(state.model, None)
+
+        def body(prepared):
+            metrics, made = _learn(state, cfg, prepared, None,
+                                   lambda: _update(state.optimizer, cfg),
+                                   graph.built)
+            if len(made) != graph.holders:
+                raise RuntimeError(
+                    f"the captured step made {len(made)} inverse holders, "
+                    f"its eager warm-up {graph.holders}")
+            return metrics
+
+        params = [p for g in state.optimizer.param_groups
+                  for p in g["params"]]
+        graph.capture(batch, lambda b: prepare_batch(b, cfg), body, params)
 
     def train_step(state: TrainState, batch: dict,
                    pairgen: torch.Generator | None = None,
                    augment: torch.Generator | None = None) -> dict:
+        nonlocal first
         where = batch["pc1"] if "pc1" in batch else batch["points"]
         with trace.span("step", where):
             with trace.span("step.prepare", where):
                 batch = add_draws(batch, cfg, pairgen, augment)
-                if group is not None:
-                    batch = shard_step_batch(batch, cfg, group)
-                batch = prepare_batch(batch, cfg)
+                sig = graphs.signature(batch)
+                why = graphs.eager_reason(state, cfg, group, batch, sig,
+                                          first)
+                # a state's first step of the signature (hooks or not) runs
+                # eagerly and warms its graphs up; the next one captures
+                graph, warm = None, False
+                if why in (None, graphs.HOOKS):
+                    first = first or sig
+                    mine = state.graph
+                    if mine is None or mine.owner is not train_step \
+                            or mine.built is None:
+                        state.graph = graphs.StepGraph(train_step)
+                        warm = True
+                    elif why is None:
+                        graph = mine
+                if graph is None:
+                    trace.count("train.eager_steps")
+                    if group is not None:
+                        batch = shard_step_batch(batch, cfg, group)
+                    batch = prepare_batch(batch, cfg)
+                else:
+                    if graph.body is None:
+                        capture(graph, state, batch)
+                        trace.count("train.graph_captures")
+                    else:
+                        trace.count("train.graph_replays")
+                    graph.replay_prepare(batch)
             state.model.train()
             sync_batchnorm(state.model, group)
-            total, metrics, _ = forward_loss(state.model, cfg, batch, group)
-            with trace.span("step.backward", where):
-                state.optimizer.zero_grad(set_to_none=True)
-                total.backward()
-            with trace.span("step.optimizer", where):
-                apply_gradients(state, cfg, group)
+            if graph is not None:
+                set_lr(state.optimizer, lr_schedule(cfg)(state.step))
+                metrics = graph.replay_body()
+                state.step += 1
+                return metrics
+            metrics, made = _learn(
+                state, cfg, batch, group,
+                lambda: apply_gradients(state, cfg, group))
+            if warm:
+                state.graph.holders = len(made)
+                state.graph.built = [i for i, h in enumerate(made)
+                                     if h.built]
             return {k: torch.as_tensor(v).detach()
                     for k, v in metrics.items()}
 
@@ -387,8 +495,20 @@ def restore_state(path: str, state: TrainState) -> TrainState:
     parameters, BN statistics, optimizer state and step."""
     device = next(state.model.parameters()).device
     ck = torch.load(path, map_location=device, weights_only=True)
+    state.graph = None  # its graphs read the tensors replaced below
     state.model.load_state_dict(ck["model"])
+    kept = [(g["lr"], g.get("capturable", False))
+            for g in state.optimizer.param_groups]
     state.optimizer.load_state_dict(ck["optimizer"])
+    for g, (lr, capturable) in zip(state.optimizer.param_groups, kept):
+        # this device's choice (`make_optimizer`), not the checkpoint's
+        g["capturable"] = capturable
+        g["lr"] = lr
+        if capturable:
+            for p in g["params"]:
+                st = state.optimizer.state.get(p, {})
+                if "step" in st:
+                    st["step"] = st["step"].to(p.device, torch.float32)
     state.step = int(ck["step"])
     return state
 

@@ -454,6 +454,99 @@ def test_train_step_at_full_width_matches_cpu(device):
         assert err <= TRAIN_GRAD_REL * scale, (name, err, scale)
 
 
+def graph_case(stage, device):
+    """(config, a fresh state warm-started from the stage's demo
+    checkpoint, batches(n points) -> a batch) of the benchmark's train
+    cells at full width: stage 2, 10 pairs of presorted clouds, pairs made
+    in the step; stage 3, 2 tuples of 12 presorted clouds."""
+    from dh3d_tpu_torch import config as cfglib
+    from dh3d_tpu_torch.data.io import morton_sort_np
+    from dh3d_tpu_torch.nn.convert import load_npz, smart_init
+    from dh3d_tpu_torch.train import init_state
+
+    cfg = cfglib.load_config(f"models/demo_stage{stage}.config.json")
+    assert cfg.morton_presorted and not cfg.remat
+    state = init_state(cfg, 0, device)
+    assert smart_init(state.model, load_npz(f"models/demo_stage{stage}.npz"))
+    rng = np.random.RandomState(stage)
+    clouds = 2 * cfg.batch_size if stage == 2 else cfg.batch_size * (
+        2 + cfg.num_pos + cfg.num_neg)
+
+    def batch(n):
+        pts = (rng.randn(clouds, n, 3) * 10).astype(np.float32)
+        pts = torch.from_numpy(morton_sort_np(pts)).to(device)
+        if stage == 3:
+            return {"points": pts}
+        return {"pc1": pts[:cfg.batch_size], "pc2": pts[cfg.batch_size:]}
+
+    return cfg, state, batch
+
+
+@pytest.mark.parametrize("stage", [2, 3])
+def test_graphed_train_step_equals_eager(device, stage):
+    """The benchmark's train steps at full width, graphed (the first step
+    eager, the second captured, the later ones replayed) and eager (a
+    no-op forward hook keeps a state eager), on the same batches and
+    draws: four steps of one shape, one of half the points (eager on both
+    sides), one more of the first shape.  Each step's metrics, launches
+    (a replay counts what its capture recorded) and, at the end, every
+    parameter, BatchNorm statistic and Adam moment and step: bit for bit,
+    with the same capturable Adam on both sides.  The graphed side counts
+    1 eager step, 1 capture and 2 replays after four steps, then 2, 1 and
+    3; the returned total costs stay each step's own."""
+    from dh3d_tpu_torch import trace
+    from dh3d_tpu_torch.train import make_train_step
+
+    cfg, graphed, batch = graph_case(stage, device)
+    _, eager, _ = graph_case(stage, device)
+    eager.model.register_forward_hook(lambda *a: None)
+    n = cfg.num_points
+    batches = [batch(n) for _ in range(4)] + [batch(n // 2), batch(n)]
+    runs, counters = {}, []
+    for name, state in (("graphed", graphed), ("eager", eager)):
+        step = make_train_step(cfg)
+        out = []
+        for i, b in enumerate(batches):
+            gen = (torch.Generator(device).manual_seed(100 + i)
+                   if "pc1" in b else None)
+            before = trace.counters()
+            m, launches = counted(step, state, b, gen)
+            after = trace.counters()
+            out.append((m, launches))
+            if name == "graphed" and i in (3, 5):
+                counters.append({k: after.get(k, 0) - first.get(k, 0)
+                                 for k in after if k.startswith("train.")})
+            if i == 0:
+                first = before
+        runs[name] = out
+    assert counters == [
+        {"train.eager_steps": 1, "train.graph_captures": 1,
+         "train.graph_replays": 2},
+        {"train.eager_steps": 2, "train.graph_captures": 1,
+         "train.graph_replays": 3}], counters
+    assert graphed.graph is not None and graphed.graph.body is not None
+    costs = [float(m["total_cost"]) for m, _ in runs["graphed"][:4]]
+    assert len(set(costs)) == 4, costs
+    for i, ((gm, gl), (em, el)) in enumerate(zip(runs["graphed"],
+                                                 runs["eager"])):
+        assert gm.keys() == em.keys()
+        for k in gm:
+            assert torch.equal(gm[k], em[k]), (i, k, gm[k], em[k])
+        assert gl == el, (i, gl, el)
+    assert graphed.step == eager.step == len(batches)
+    for (name, a), b in zip(graphed.model.state_dict().items(),
+                            eager.model.state_dict().values()):
+        assert torch.equal(a, b), name
+    params = dict(eager.model.named_parameters())
+    for name, p in graphed.model.named_parameters():
+        if not p.requires_grad:
+            continue
+        mine, theirs = (graphed.optimizer.state[p],
+                        eager.optimizer.state[params[name]])
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(mine[key], theirs[key]), (name, key)
+
+
 @pytest.mark.parametrize("mode", ["legacy", "remat"])
 def test_legacy_and_remat_train_steps(device, mode):
     """A stage-2 step at [20, 8192] in the legacy mode (H takes the
