@@ -17,7 +17,10 @@ their input's values.
               the gradient over the ranks and keeps the rank's own block.
 
 Both need no collective but `all_reduce`, so they run the same on gloo
-CPU tensors, gloo CUDA tensors and NCCL.  With these adjoints, a backward
+CPU tensors, gloo CUDA tensors and NCCL.  Each all-reduce issued counts
+in the trace's counters `collective.calls.<op>` and
+`collective.bytes.<op>` (the bytes handed to the backend), `<op>` the
+collective it serves.  With these adjoints, a backward
 that every rank runs from its own copy of one loss differentiates the sum
 of the ranks' losses: n times the loss when every rank computes the same
 one (`train.trainer` divides the reduced gradients by n).
@@ -59,13 +62,30 @@ def position(group) -> int:
     return pos
 
 
+def backends(group) -> tuple:
+    """The backend of each of `group`'s process groups (`groups_of`):
+    "nccl", "gloo", ..., or None for an object that is no process group
+    of torch.distributed."""
+    out = []
+    for g in groups_of(group):
+        try:
+            out.append(str(dist.get_backend(g)))
+        except ValueError:  # not in the world's map of groups
+            out.append(None)
+    return tuple(out)
+
+
 def reduce_(t: torch.Tensor, group, op: str = "all_reduce") -> torch.Tensor:
     """Sum the contiguous tensor `t` over `group` in place, without
     autograd; returns it.  Span `collective.<op>`: the collective it
-    serves."""
+    serves; counters `collective.calls.<op>` and `collective.bytes.<op>`
+    a process group reduced over."""
     with trace.span(f"collective.{op}", t):
         for g in groups_of(group):
             dist.all_reduce(t, group=g)
+            trace.count(f"collective.calls.{op}")
+            trace.count(f"collective.bytes.{op}",
+                        t.numel() * t.element_size())
     return t
 
 

@@ -5,6 +5,10 @@ imports them by name (and with them torch and the port only).
   step_job      one data-parallel train step from given weights and a
                 whole batch with its draws: metrics, reduced gradients,
                 the state after it, Adam's moments, kernel launches
+  steps_job     data-parallel steps on whole batches in turn: each
+                step's metrics and collective counts, the first reduced
+                gradients, the state after the last
+  graph_job     the same steps on a graphed state and on one kept eager
   units_job     sync BatchNorm, the mined loss over the group and the
                 collectives' gradients on given inputs
   knn_job       `knn_sharded` on given clouds
@@ -60,6 +64,18 @@ def step_result(state, metrics) -> dict:
     }
 
 
+def _dp_state(mesh, cfg, weights):
+    """A train state of `cfg` from the model state dict `weights`, rank
+    0's on every rank of the mesh."""
+    from dh3d_tpu_torch.parallel.mesh import replicate
+    from dh3d_tpu_torch.train import trainer
+
+    state = trainer.init_state(cfg, 0, mesh.device)
+    state.model.load_state_dict(weights)
+    replicate(state, mesh)
+    return state
+
+
 def step_job(mesh, cfg: dict, weights: dict, batch: dict,
              timed_steps: int = 0, slices: int = 1) -> dict:
     """One data-parallel step of `cfg` from the model state dict `weights`
@@ -69,15 +85,13 @@ def step_job(mesh, cfg: dict, weights: dict, batch: dict,
     Returns `step_result` with the kernel launches of that step and, after
     `timed_steps` more steps on the same batch, their times on CUDA
     events (`step_ms`; None on the CPU)."""
-    from dh3d_tpu_torch.parallel.mesh import multihost_mesh, replicate
+    from dh3d_tpu_torch.parallel.mesh import multihost_mesh
     from dh3d_tpu_torch.train import trainer
 
     if slices > 1:
         mesh = multihost_mesh(slices, mesh.size // slices, device=mesh.device)
     cfg = dotdict(cfg)
-    state = trainer.init_state(cfg, 0, mesh.device)
-    state.model.load_state_dict(weights)
-    replicate(state, mesh)
+    state = _dp_state(mesh, cfg, weights)
     step = trainer.make_train_step(cfg, mesh)
     batch = to(batch, mesh.device)
     _sync(mesh.device)
@@ -96,6 +110,82 @@ def step_job(mesh, cfg: dict, weights: dict, batch: dict,
             ev[1].record()
             ev[1].synchronize()
             out["step_ms"].append(ev[0].elapsed_time(ev[1]))
+    return out
+
+
+def _steps(state, step, batches, device) -> list:
+    """[{"metrics", "launches", "collectives"}] of `step(state, batch)` on
+    each of `batches` in turn: its metrics, kernel launches and the
+    trace's `collective.*` counts it added (a replay adds what its capture
+    recorded)."""
+    from dh3d_tpu_torch import trace
+
+    out = []
+    for batch in batches:
+        before, launched = trace.tally(), kernels.counts()
+        metrics = step(state, to(batch, device))
+        _sync(device)
+        now = trace.tally()
+        out.append({
+            "metrics": {k: v.detach().cpu() for k, v in metrics.items()},
+            "launches": {k: n - launched[k]
+                         for k, n in kernels.counts().items()},
+            "collectives": {k: n - before.get(k, 0) for k, n in now.items()
+                            if k.startswith("collective.")
+                            and n != before.get(k, 0)}})
+    return out
+
+
+def steps_job(mesh, cfg: dict, weights: dict, batches: list) -> dict:
+    """Data-parallel steps of `cfg` from the model state dict `weights`
+    on each whole batch of `batches` (with its draws) in turn: `steps`
+    (`_steps`: per step its metrics, launches and collective counts), the
+    reduced gradient of every trainable parameter after the first step
+    (`grads`) and the model's state after the last (`state`)."""
+    from dh3d_tpu_torch.train import trainer
+
+    cfg = dotdict(cfg)
+    state = _dp_state(mesh, cfg, weights)
+    step = trainer.make_train_step(cfg, mesh)
+    out = {"steps": _steps(state, step, batches[:1], mesh.device)}
+    out["grads"] = {n: p.grad.detach().cpu()
+                    for n, p in state.model.named_parameters()
+                    if p.requires_grad}
+    out["steps"] += _steps(state, step, batches[1:], mesh.device)
+    out["state"] = {k: v.detach().cpu()
+                    for k, v in state.model.state_dict().items()}
+    return out
+
+
+def graph_job(mesh, cfg: dict, weights: dict, batches: list) -> dict:
+    """`steps_job`'s steps on two states from `weights`: "graphed", whose
+    step is graphed where it may be (the first step eager, the second
+    captured, the later ones replayed), and "eager", kept eager by a no-op
+    forward hook.  For each: `steps` (`_steps`), the trace's `train.*`
+    counts the steps added, and the state and Adam's moments and steps
+    after them (`step_result`)."""
+    from dh3d_tpu_torch import trace
+    from dh3d_tpu_torch.train import trainer
+
+    cfg = dotdict(cfg)
+    out = {}
+    for name in ("graphed", "eager"):
+        state = _dp_state(mesh, cfg, weights)
+        if name == "eager":
+            state.model.register_forward_hook(lambda *a: None)
+        before = trace.tally()
+        steps = _steps(state, trainer.make_train_step(cfg, mesh), batches,
+                       mesh.device)
+        res = step_result(state, steps[-1]["metrics"])
+        res["steps"] = steps
+        res["counters"] = {k: n - before.get(k, 0)
+                           for k, n in trace.tally().items()
+                           if k.startswith("train.")
+                           and n != before.get(k, 0)}
+        res["adam_step"] = {n: float(state.optimizer.state[p]["step"])
+                            for n, p in state.model.named_parameters()
+                            if p.requires_grad}
+        out[name] = res
     return out
 
 

@@ -26,7 +26,9 @@ While a thread captures device work into CUDA graphs (`cutting(cut)`),
 its spans record nothing (a timing event recorded inside a capture could
 not be timed): each calls `cut(name, device)` where it opens and
 `cut(None, None)` where it closes, so the capture can end a graph there
-and its replay open the same span around the same work.
+and its replay open the same span around the same work.  A span another
+thread opens on a stream being captured (autograd's device thread, in a
+captured backward) records nothing either, and cuts nothing.
 """
 
 from __future__ import annotations
@@ -151,6 +153,10 @@ def span(name: str, device=None):
         return _Cut(cut, name, device)
     if not (_enabled or _profiling()):
         return _NULL
+    dev = getattr(device, "device", device)
+    if dev is not None and torch.device(dev).type == "cuda" \
+            and torch.cuda.is_current_stream_capturing():
+        return _NULL
     return _Span(name, device)
 
 
@@ -169,6 +175,23 @@ def cutting(cut):
 def count(name: str, n: int = 1) -> None:
     with _lock:
         _counts[name] += n
+
+
+def tally() -> dict:
+    """{name: count} of this module's counters alone (no launches)."""
+    with _lock:
+        return dict(_counts)
+
+
+def add(counts: dict) -> None:
+    """Add {name: n} to this module's counters (n may be negative): a CUDA
+    graph's replay adds what its capture counted.  A counter back at 0 is
+    dropped."""
+    with _lock:
+        for name, n in counts.items():
+            _counts[name] += n
+            if not _counts[name]:
+                del _counts[name]
 
 
 def counters() -> dict:

@@ -53,7 +53,8 @@ start restored, the steps, the host-clock seconds of the loop, each
 step's wait in `next(batches)` (`wait_s`, span `step.wait`), its device
 time (`step_ms`, span `step`'s CUDA events; None off CUDA) and its
 kernel launches (the trace's counters), the step's own counters over the
-run (`counters`: eager steps, graph captures and replays), `spans`
+run (`counters`: eager steps, graph captures and replays, and the
+collectives' calls and bytes), `spans`
 (`span_summary`), the last metrics, and the trace file (`profile`, None
 without one).
 `--device` defaults to cuda and raises when there is no CUDA device; the
@@ -200,7 +201,8 @@ def run(args, device, mesh=None):
     else:
         batches = real_batches(cfg, args.seed)
         if (cfg.prefetch or 0) > 0:
-            batches = ThreadedPrefetcher(batches, depth=cfg.prefetch)
+            batches = ThreadedPrefetcher(batches, depth=cfg.prefetch,
+                                         device=device)
 
     state = trainer.init_state(cfg, args.seed, device)
     restored = None
@@ -291,9 +293,11 @@ def launches() -> dict:
 
 def step_counters() -> dict:
     """{counter: count so far} of the train step's own counters
-    (`train.eager_steps`, `train.graph_captures`, `train.graph_replays`)."""
+    (`train.eager_steps`, `train.graph_captures`, `train.graph_replays`)
+    and, under `--num_devices`, its collectives' (`collective.calls.<op>`,
+    `collective.bytes.<op>`)."""
     return {k: n for k, n in trace.counters().items()
-            if k.startswith("train.")}
+            if k.startswith(("train.", "collective."))}
 
 
 def span_summary(spans: dict, steps: list) -> dict:

@@ -5,14 +5,18 @@ autograd and Adam's dispatch), and the device waits for it.  A captured
 step is launched as a few graphs instead.
 
 `make_train_step` graphs a step when `eager_reason` finds nothing against
-it: the batch on CUDA, no process group, no `remat` (checkpointing reads
-the RNG state, which a capture cannot), no Morton sort in the step
-(`ops.morton_codes` copies a host scalar), an optimizer built capturable
-(`make_optimizer` on CUDA parameters), no module hooks (Python a replay
-would skip) and the batch's keys, shapes and dtypes those of the first
-batch the step function graphed (`signature`).  A state's first such
-step runs eagerly, the warm-up; its second is captured and then replayed
-like every later one.  The step's other batches run eagerly.
+it: the batch on CUDA, no process group or NCCL's alone (gloo runs its
+collectives on the host, where a graph cannot hold them), no `remat`
+(checkpointing reads the RNG state, which a capture cannot), no Morton
+sort in the step (`ops.morton_codes` copies a host scalar), an optimizer
+built capturable (`make_optimizer` on CUDA parameters), no module hooks
+(Python a replay would skip) and the batch's keys, shapes and dtypes
+those of the first batch the step function graphed (`signature`).  A
+state's first such step runs eagerly, the warm-up; its second is
+captured and then replayed like every later one.  The step's other
+batches run eagerly.  Under NCCL every rank captures and replays the
+same collectives in the same order; the eager warm-up has made the
+communicators the capture needs.
 
 `Recording.capture(fn)` runs `fn` under capture on a side stream, into a
 pool that the step's recordings share, and ends one graph and begins the
@@ -20,7 +24,10 @@ next wherever `fn` opens or closes a span (`trace.cutting`).  `replay()`
 launches the graphs in order between the same spans, so every span times
 the same stretch of device work as in an eager step, and adds to the
 kernels' launch counts what each graph's capture launched (the capture
-itself runs nothing and counts nothing).
+itself runs nothing and counts nothing), and to the trace's counters what
+each counted (`collective.*`).  Collectives that a captured backward
+issues from autograd's thread stay inside the backward's graph: their
+spans do not open on replay, their counts do.
 
 A `StepGraph` holds one state's recordings: `prepare` (the batch's
 preparation) and `body` (forward, losses, the CSR inverses that the
@@ -40,6 +47,7 @@ from torch.nn.modules import module as _module
 from torch.utils import _pytree as pytree
 
 from dh3d_tpu_torch import kernels, trace
+from dh3d_tpu_torch.parallel.collectives import backends
 
 HOOKS = "module hooks"
 
@@ -68,9 +76,17 @@ def eager_reason(state, cfg, group, batch: dict, sig, first) -> str | None:
     """Why the step on `batch` (with its draws; `sig` its signature) runs
     eagerly, or None when its CUDA graphs may run it.  `first`: the
     signature the step function graphs (None before it has one).
-    `HOOKS` alone lets the step count as the warm-up."""
+    `HOOKS` alone lets the step count as the warm-up.  A group whose
+    collectives a graph can hold is NCCL's; another backend is named
+    ("gloo collectives"), and an object that is no process group keeps
+    the step eager as "data parallel"."""
     if group is not None:
-        return "data parallel"
+        names = backends(group)
+        if None in names:
+            return "data parallel"
+        other = [b for b in names if "nccl" not in b]
+        if other:
+            return f"{other[0]} collectives"
     if cfg.remat:
         return "remat"
     model_cfg = getattr(state.model, "cfg", cfg)  # what the forward reads
@@ -89,10 +105,18 @@ def eager_reason(state, cfg, group, batch: dict, sig, first) -> str | None:
     return None
 
 
+def _added(now: dict, before: dict) -> dict:
+    """{name: now - before} of the counts that moved."""
+    return {k: n - before.get(k, 0) for k, n in now.items()
+            if n != before.get(k, 0)}
+
+
 class Recording:
     """Device work captured as CUDA graphs cut at its spans (module
-    docstring).  `items`: ("graph", graph, launches), ("open", span
-    name, device) and ("close",), in order."""
+    docstring).  `items`: ("graph", graph, launches, counted), ("open",
+    span name, device) and ("close",), in order; `counted` the trace's
+    counters the graph's capture added; graph None where the capture was
+    empty but counted something."""
 
     def __init__(self, pool, stream: torch.cuda.Stream):
         self.pool, self.stream = pool, stream
@@ -119,7 +143,7 @@ class Recording:
         self._begin()
 
     def _begin(self):
-        self._before = kernels.counts()
+        self._before = kernels.counts(), trace.tally()
         self._graph = torch.cuda.CUDAGraph()
         self._graph.capture_begin(pool=self.pool,
                                   capture_error_mode="thread_local")
@@ -128,23 +152,29 @@ class Recording:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             self._graph.capture_end()
-        launched = {k: n - self._before[k]
-                    for k, n in kernels.counts().items()
-                    if n != self._before[k]}
+        launched = _added(kernels.counts(), self._before[0])
+        counted = _added(trace.tally(), self._before[1])
         kernels.add_counts({k: -n for k, n in launched.items()})
+        trace.add({k: -n for k, n in counted.items()})
+        graph = self._graph
         if any("empty" in str(w.message) for w in caught):
-            self.empty.append(self._graph)
-        else:
-            self.items.append(("graph", self._graph, launched))
+            # a collective over one rank launches nothing: keep its counts
+            self.empty.append(graph)
+            graph = None
+        if graph is not None or launched or counted:
+            self.items.append(("graph", graph, launched, counted))
         self._graph = None
 
     def replay(self):
         opened = []
         for item in self.items:
             if item[0] == "graph":
-                item[1].replay()
+                if item[1] is not None:
+                    item[1].replay()
                 if item[2]:
                     kernels.add_counts(item[2])
+                if item[3]:
+                    trace.add(item[3])
             elif item[0] == "open":
                 opened.append(trace.span(item[1], item[2]))
                 opened[-1].__enter__()

@@ -39,7 +39,9 @@ and its backward, through the collectives' adjoints, the gradient of n
 times it: the step zero-fills the unreached trainable gradients,
 all-reduces the gradients and divides them by n, then clips and takes the
 Adam step, the same on every rank.  Frozen groups get no gradient and no
-collective.
+collective.  Under NCCL the step's device work, collectives included, is
+captured and replayed as CUDA graphs like the one-process step's; under
+gloo it runs eagerly.
 """
 
 from __future__ import annotations
@@ -152,13 +154,17 @@ def kernel_l2(model: nn.Module) -> torch.Tensor:
 @dataclasses.dataclass
 class TrainState:
     """The model (parameters and BN statistics), its optimizer, the
-    number of updates taken, and the step's CUDA graphs over these
-    tensors (`graphs.StepGraph`; None until a step makes them)."""
+    number of updates taken, the step's CUDA graphs over these tensors
+    (`graphs.StepGraph`; None until a step makes them), and the step
+    function that last set the model's train mode and BatchNorm group
+    (`ready`)."""
 
     model: DH3D
     optimizer: torch.optim.Adam
     step: int = 0
     graph: graphs.StepGraph | None = dataclasses.field(
+        default=None, repr=False, compare=False)
+    ready: Callable | None = dataclasses.field(
         default=None, repr=False, compare=False)
 
 
@@ -375,24 +381,31 @@ def make_train_step(cfg, group=None):
     (`state.graph`): one signature of batch a step function, the state's
     first such step run eagerly, its second captured (`graphs`).
     Counters (`trace.count`): `train.eager_steps`, `train.graph_captures`
-    and `train.graph_replays`.
+    and `train.graph_replays`.  The step puts the model in train mode and
+    sets its BatchNorms' group when a state first meets it (`state.ready`)
+    and again after the model was put in eval mode, not every step.
 
     With `group` (a `parallel.Mesh` or a process group) the step is data
     parallel (module docstring): every rank passes the whole batch and
     generators seeded alike; metrics, parameters, BN statistics and Adam
-    state come out the same on every rank."""
+    state come out the same on every rank.  Under NCCL the step is
+    graphed as above, its collectives in the graphs; the rank's block
+    (`shard_step_batch`) is taken eagerly, like the draws."""
     check_config(cfg)
     cfg = dotdict(dict(cfg))
     first = None  # the signature of the batches this step function graphs
 
-    def capture(graph: graphs.StepGraph, state: TrainState, batch: dict):
-        state.model.train()
-        sync_batchnorm(state.model, None)
+    def ready(state: TrainState):
+        if state.ready is not train_step or not state.model.training:
+            state.model.train()
+            sync_batchnorm(state.model, group)
+            state.ready = train_step
 
+    def capture(graph: graphs.StepGraph, state: TrainState, batch: dict):
         def body(prepared):
-            metrics, made = _learn(state, cfg, prepared, None,
-                                   lambda: _update(state.optimizer, cfg),
-                                   graph.built)
+            metrics, made = _learn(
+                state, cfg, prepared, group,
+                lambda: _update(state.optimizer, cfg, group), graph.built)
             if len(made) != graph.holders:
                 raise RuntimeError(
                     f"the captured step made {len(made)} inverse holders, "
@@ -408,6 +421,7 @@ def make_train_step(cfg, group=None):
                    augment: torch.Generator | None = None) -> dict:
         nonlocal first
         where = batch["pc1"] if "pc1" in batch else batch["points"]
+        ready(state)
         with trace.span("step", where):
             with trace.span("step.prepare", where):
                 batch = add_draws(batch, cfg, pairgen, augment)
@@ -426,10 +440,10 @@ def make_train_step(cfg, group=None):
                         warm = True
                     elif why is None:
                         graph = mine
+                if group is not None:
+                    batch = shard_step_batch(batch, cfg, group)
                 if graph is None:
                     trace.count("train.eager_steps")
-                    if group is not None:
-                        batch = shard_step_batch(batch, cfg, group)
                     batch = prepare_batch(batch, cfg)
                 else:
                     if graph.body is None:
@@ -438,8 +452,6 @@ def make_train_step(cfg, group=None):
                     else:
                         trace.count("train.graph_replays")
                     graph.replay_prepare(batch)
-            state.model.train()
-            sync_batchnorm(state.model, group)
             if graph is not None:
                 set_lr(state.optimizer, lr_schedule(cfg)(state.step))
                 metrics = graph.replay_body()

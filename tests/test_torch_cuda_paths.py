@@ -1423,6 +1423,68 @@ def test_parallel_knn_sharded_on_two_ranks_equals_bruteforce(device,
             assert torch.equal(dist, want_dist[:, block].cpu())
 
 
+@pytest.mark.parametrize("world", [1, 2])
+def test_graphed_data_parallel_step_equals_eager(device, world):
+    """The data-parallel stage-2 step at full width over `world` NCCL
+    ranks, a card each (models/demo_stage2's config and weights, 2 pairs
+    of 8192 presorted points a rank, pairs made in the step), graphed (the
+    first step eager, the second captured, the later ones replayed) and
+    eager (a no-op forward hook), on the same batches and draws, 4 steps:
+    each step's metrics, kernel launches and collective counters (a replay
+    adds what its capture counted) and, at the end, every parameter,
+    statistic and Adam moment and step, bit for bit on every rank; the
+    graphed side counts 1 eager step, 1 capture and 2 replays.  Two ranks'
+    sums are one addition, the same whichever algorithm NCCL picks for a
+    captured collective, so no bit may move.  Skips below `world` cards."""
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} CUDA devices")
+    from dh3d_tpu_torch import config as cfglib
+    from dh3d_tpu_torch.data.io import morton_sort_np
+    from dh3d_tpu_torch.nn.convert import load_npz, smart_init
+    from dh3d_tpu_torch.parallel import jobs
+    from dh3d_tpu_torch.parallel.launch import spawn
+    from dh3d_tpu_torch.train import add_draws, init_state
+
+    cfg = cfglib.load_config("models/demo_stage2.config.json")
+    assert cfg.morton_presorted and cfg.device_pairgen
+    P = cfg.batch_size = 2 * world
+    cfg.num_devices = world
+    state = init_state(cfg, 0, "cpu")
+    assert smart_init(state.model, load_npz("models/demo_stage2.npz"))
+    rng = np.random.RandomState(25)
+    batches = []
+    for i in range(4):
+        pts = morton_sort_np((rng.randn(2 * P, cfg.num_points, 3) * 10)
+                             .astype(np.float32))
+        batches.append(add_draws(
+            {"pc1": torch.from_numpy(pts[:P]),
+             "pc2": torch.from_numpy(pts[P:])}, cfg,
+            torch.Generator().manual_seed(100 + i)))
+    kernels.library()  # built once, before the ranks start
+    ranks = spawn(jobs.graph_job, world, (dict(cfg), state.model.state_dict(),
+                                          batches), device="cuda")
+    for rank in ranks:
+        graphed, eager = rank["graphed"], rank["eager"]
+        assert graphed["counters"] == {
+            "train.eager_steps": 1, "train.graph_captures": 1,
+            "train.graph_replays": 2}, graphed["counters"]
+        assert eager["counters"] == {"train.eager_steps": 4}
+        for i, (g, e) in enumerate(zip(graphed["steps"], eager["steps"])):
+            for k, v in e["metrics"].items():
+                assert torch.equal(g["metrics"][k], v), (i, k)
+            assert g["launches"] == e["launches"], i
+            assert g["collectives"] == e["collectives"], i
+            assert e["collectives"]["collective.calls.all_gather"] == 9
+        for key in ("state", "grads"):
+            for k, v in eager[key].items():
+                assert torch.equal(graphed[key][k], v), (key, k)
+                assert torch.equal(ranks[0]["graphed"][key][k], v), (key, k)
+        for k, moments in eager["adam"].items():
+            for m, v in moments.items():
+                assert torch.equal(graphed["adam"][k][m], v), (k, m)
+        assert graphed["adam_step"] == eager["adam_step"]
+
+
 def test_parallel_train_cli_on_nccl(device, tmp_path):
     """`python -m dh3d_tpu_torch.train --num_devices 1` on NCCL
     (`detection_config`, synthetic, 3 steps, warm-started): finite
